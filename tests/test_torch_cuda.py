@@ -1,0 +1,95 @@
+"""The four CUDA kernels against their plain versions on the card
+(marker ``cuda``: these skip where no CUDA device is present; run them
+on the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``).
+Small shapes; chip_smoke.py holds the kernels at the main path's."""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _payload(rng, V, maxm, keys):
+    from cometbft_tpu_torch.crypto import _ref25519 as ref
+
+    payload = rng.integers(0, 256, size=(V, 68 + maxm), dtype=np.uint8)
+    for v in range(V):
+        m = rng.bytes(int(rng.integers(0, maxm + 1)))
+        sig = keys[v].sign(m)
+        if v % 5 == 1:
+            sig = sig[:32] + (int.from_bytes(sig[32:], "little") + ref.L).to_bytes(32, "little")
+        if v % 5 == 2:
+            m = m + b"!" if len(m) < maxm else m[:-1]
+        payload[v, :64] = np.frombuffer(sig, np.uint8)
+        payload[v, 64:67] = [len(m) & 0xFF, len(m) >> 8, 0]
+        payload[v, 67] = 0 if v % 7 == 3 else 1
+        payload[v, 68 : 68 + len(m)] = np.frombuffer(m, np.uint8)
+    return payload
+
+
+@pytest.fixture(scope="module")
+def case(dev):
+    from cometbft_tpu_torch.crypto import ed25519 as host
+
+    rng = np.random.default_rng(5)
+    V = 70  # not a multiple of 32: a ragged last warp
+    keys = [host.PrivKey.from_seed(rng.bytes(32)) for _ in range(V)]
+    pubs = np.stack([np.frombuffer(k.pub_key().data, np.uint8) for k in keys])
+    return _payload(rng, V, 128, keys), pubs
+
+
+def test_k1_k2_match_plain(dev, case):
+    from cometbft_tpu_torch.ops import sha2
+
+    payload, pubs = (torch.from_numpy(x).to(dev) for x in case)
+    _, _, blocks, active, _ = sha2.parse_verify_payload(payload, pubs)
+    pb, pa = sha2.parse_verify_payload_plain(payload, pubs)
+    assert torch.equal(blocks, pb) and torch.equal(active, pa)
+    assert torch.equal(sha2.sha512_blocks(blocks, active), sha2.sha512_blocks_plain(blocks, active))
+
+
+def test_k3_k4_match_plain(dev, case):
+    from cometbft_tpu_torch.ops import comb, sha2
+
+    from cometbft_tpu_torch.crypto import _ref25519 as ref
+
+    payload, pubs = (torch.from_numpy(x).to(dev) for x in case)
+    off_curve = next(
+        y.to_bytes(32, "little") for y in range(2, 1000)
+        if ref.decompress(y.to_bytes(32, "little")) is None
+    )
+    pubs[4] = torch.frombuffer(bytearray(off_curve), dtype=torch.uint8).to(dev)
+    tables, valid = comb.build_a_tables(pubs)
+    pt, pv = comb.build_a_tables_plain(pubs)
+    assert torch.equal(tables, pt) and torch.equal(valid, pv) and not bool(valid[4])
+    _, _, blocks, active, _ = sha2.parse_verify_payload(payload, pubs)
+    digest = sha2.sha512_blocks(blocks, active)
+    b_tab = comb.b_tables(dev)
+    out = comb.verify_cached(tables, valid, payload, digest, b_tab)
+    ok = comb.verify_cached_plain(tables, valid, payload, digest, b_tab)
+    assert torch.equal(out, comb.pack_verdicts(ok, payload[:, 67] == 1))
+
+
+def test_k3_on_arbitrary_encodings_matches_plain(dev):
+    """Random 32-byte strings as pubkeys (about half decode, y >= p and
+    the sign bit included): every table word from K3 equals the plain
+    version's, an exact check of the kernel's field arithmetic on
+    arbitrary canonical values."""
+    from cometbft_tpu_torch.ops import comb
+
+    rng = np.random.default_rng(6)
+    pubs = torch.from_numpy(rng.integers(0, 256, size=(96, 32), dtype=np.uint8)).to(dev)
+    pubs[:4, :31] = 0xFF
+    pubs[:4, 31] |= 0x7F  # y = 2^255 - 1 >= p, sign bit random
+    tables, valid = comb.build_a_tables(pubs)
+    pt, pv = comb.build_a_tables_plain(pubs)
+    assert torch.equal(valid, pv) and 0 < int(valid.sum()) < 96
+    assert torch.equal(tables, pt)
