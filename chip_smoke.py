@@ -37,13 +37,27 @@ import torch
 
 V_MAIN = 10_000  # validators on the main path
 V_K3_PARITY = 1_024  # K3 against its plain version
-MAXM = 128  # payload message bucket of ~110-byte vote sign-bytes
+MAXM = 128  # payload message bucket of the 125- and 126-byte vote sign-bytes
 CHAIN_ID = "cometbft-tpu-torch-smoke"
 SEED = 20261017
 # planted faults: a flipped message byte, s >= L, an undecodable R; absent rows
 I_FLIP, I_S_GE_L, I_BAD_R = 4_321, 777, 9_999
 ABSENT = [12, 5_000, 8_888]
 N_ORACLE_SAMPLE = 256
+# Each precommit carries its signer's own clock: one second for the whole
+# commit, nanoseconds uniform in [0, 1e9) from SEED.  Nanos below 2^28
+# encode as a 4-byte varint and the rest as 5 bytes, so the commit's
+# sign-bytes come in two lengths, as in a real commit.
+TS_SECONDS = 1_760_000_000
+# Timed launches and warm-up launches before them, per kernel: (kernel
+# iters, kernel warm-up, plain iters, plain warm-up).  The plain K3 runs
+# once, cold, and its tables are held against the main path's.
+TIMING = {
+    "parse_verify_payload": (50, 2, 5, 1),
+    "sha512_blocks": (20, 2, 2, 1),
+    "build_a_tables": (5, 2, 1, 0),
+    "verify_cached": (10, 2, 1, 1),
+}
 
 # The card's peaks (NVIDIA H100 SXM data sheet, at a 700 W power limit):
 # HBM3 bandwidth, and int32 operations at half the 67 TFLOP/s float32
@@ -72,7 +86,7 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+def cuda_ms(fn, iters: int, warmup: int) -> float:
     """Mean time of fn() on the card by CUDA events over ``iters`` calls."""
     for _ in range(warmup):
         fn()
@@ -121,7 +135,8 @@ def main() -> int:
     _build.build_all()
     log(f"[1] build: {time.perf_counter() - t0:.1f} s (all sources in parallel)")
     for name, rec in sorted(_build.BUILD_LOG.items()):
-        log(f"[1]   {name}.cu: {rec['seconds']:.1f} s")
+        how = "cached library, its build's ptxas report" if rec["cached"] else f"{rec['seconds']:.1f} s"
+        log(f"[1]   {name}.cu: {how}")
         for line in rec["ptxas"].splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[1]     {line.strip()}")
@@ -135,18 +150,23 @@ def main() -> int:
     by_addr = {k.pub_key().address(): k for k in keys}
     bid = T.BlockID(hash=rng.bytes(32), part_set_header=T.PartSetHeader(total=3, hash=rng.bytes(32)))
     height = 1_000_000
-    ts = Timestamp(seconds=1_760_000_000, nanos=123_456_789)
+    nanos = rng.integers(0, 1_000_000_000, size=V_MAIN)
     sigs = []
     for i, v in enumerate(vals.validators):
         vote = T.Vote(
-            type=PRECOMMIT_TYPE, height=height, round=0, block_id=bid, timestamp=ts,
+            type=PRECOMMIT_TYPE, height=height, round=0, block_id=bid,
+            timestamp=Timestamp(seconds=TS_SECONDS, nanos=int(nanos[i])),
             validator_address=v.address, validator_index=i,
         )
         vote.signature = by_addr[v.address].sign(vote.sign_bytes(CHAIN_ID))
         sigs.append(vote.to_commit_sig())
     good = T.Commit(height=height, round=0, block_id=bid, signatures=sigs)
+    sb_good = good.vote_sign_bytes_fn(CHAIN_ID)
+    lens, counts = np.unique([len(sb_good(i)) for i in range(V_MAIN)], return_counts=True)
     log(f"[inputs] {V_MAIN} keys and signatures in {time.perf_counter() - t0:.1f} s "
-        f"(host ed25519, seed {SEED})")
+        f"(host ed25519, seed {SEED}); sign-bytes lengths "
+        + ", ".join(f"{n} rows of {ln} B" for ln, n in zip(lens.tolist(), counts.tolist())))
+    require(len(lens) > 1, "one sign-bytes length only: the fill's mixed-length path is not driven")
 
     # the planted commit: flipped message byte (a timestamp the signer
     # never signed), s >= L, an undecodable R, and a few absent rows
@@ -158,8 +178,8 @@ def main() -> int:
     fsigs = list(sigs)
     for i in planted:
         cs = sigs[i]
-        if i == I_FLIP:
-            t2 = Timestamp(seconds=ts.seconds, nanos=ts.nanos + 1)
+        if i == I_FLIP:  # the low bit of the nanos: a byte the signer never signed
+            t2 = Timestamp(seconds=cs.timestamp.seconds, nanos=cs.timestamp.nanos ^ 1)
             fsigs[i] = T.CommitSig(cs.block_id_flag, cs.validator_address, t2, cs.signature)
         elif i == I_S_GE_L:
             s = int.from_bytes(cs.signature[32:], "little") + ref.L
@@ -287,9 +307,8 @@ def main() -> int:
         walls.append((time.perf_counter() - t0) * 1e3)
     walls = walls[2:]
     good_items = []
-    sb = good.vote_sign_bytes_fn(CHAIN_ID)
     for i, cs in enumerate(good.signatures):
-        good_items.append((vals.validators[i].pub_key.bytes(), sb(i), cs.signature))
+        good_items.append((vals.validators[i].pub_key.bytes(), sb_good(i), cs.signature))
     for _ in range(12):
         bv = cv.CombBatchVerifier(entry)
         for it in good_items:
@@ -329,23 +348,27 @@ def main() -> int:
     sha2.launch_k1(good_payload, entry.pubs, blocks, active)
     sha2.launch_k2(blocks, active, dig)
     sum_active = int(active.sum())
-    t = {
+    launch = {
         "parse_verify_payload": (
-            cuda_ms(lambda: sha2.launch_k1(good_payload, entry.pubs, blocks, active), 50),
-            cuda_ms(lambda: sha2.parse_verify_payload_plain(good_payload, entry.pubs), 5),
+            lambda: sha2.launch_k1(good_payload, entry.pubs, blocks, active),
+            lambda: sha2.parse_verify_payload_plain(good_payload, entry.pubs),
         ),
         "sha512_blocks": (
-            cuda_ms(lambda: sha2.launch_k2(blocks, active, dig), 20),
-            cuda_ms(lambda: sha2.sha512_blocks_plain(blocks, active), 2, warmup=1),
+            lambda: sha2.launch_k2(blocks, active, dig),
+            lambda: sha2.sha512_blocks_plain(blocks, active),
         ),
         "verify_cached": (
-            cuda_ms(lambda: comb.launch_k4(entry.tables, valid_u8, good_payload, dig,
-                                           entry.b_tables, cnt, out), 10),
-            cuda_ms(lambda: comb.verify_cached_plain(entry.tables, entry.valid, good_payload,
-                                                     dig, entry.b_tables), 1, warmup=1),
+            lambda: comb.launch_k4(entry.tables, valid_u8, good_payload, dig, entry.b_tables,
+                                   cnt, out),
+            lambda: comb.verify_cached_plain(entry.tables, entry.valid, good_payload, dig,
+                                             entry.b_tables),
         ),
-        "build_a_tables": (cuda_ms(k3_launch, 3, warmup=1), None),
+        "build_a_tables": (k3_launch, None),
     }
+    t = {}
+    for name, (kern, plain) in launch.items():
+        it, wu, pit, pwu = TIMING[name]
+        t[name] = (cuda_ms(kern, it, wu), None if plain is None else cuda_ms(plain, pit, pwu))
     # the plain K3 at the main path's V, once, held against the main path's tables
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -378,7 +401,7 @@ def main() -> int:
         "build_a_tables": (
             "operations", V_MAIN * FIELD_MULS_PER_TABLE * OPS_PER_FIELD_MUL / INT32_OPS_PER_S),
     }
-    # the other side of each bound, for the record
+    # the other side of each bound, logged for the record
     other = {
         "parse_verify_payload": V_MAIN * nb * 128 * 8 / INT32_OPS_PER_S,
         "sha512_blocks": (V_MAIN * nb * 128 + V_MAIN * 4 + V_MAIN * 64) / HBM_BYTES_PER_S,
@@ -407,10 +430,12 @@ def main() -> int:
             "manifest_rows": rows_, "launches": launches[name],
             "max_abs_err": results[name], "parity": results[name] == 0,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": secs * 1e3, "bound_by": by,
-            "other_bound_ms": other[name] * 1e3, "library_ms": None,
+            "library_ms": None,
         })
-        log(f"[4] {tag} {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound {secs * 1e3:.4f} ms "
-            f"by {by}), launches {launches[name]}")
+        it, wu, pit, pwu = TIMING[name]
+        log(f"[4] {tag} {name}: {ms:.4f} ms over {it} launches after {wu} warm-up "
+            f"(plain {plain_ms:.2f} ms over {pit} after {pwu}); bound {secs * 1e3:.4f} ms by {by}, "
+            f"other side {other[name] * 1e3:.4f} ms; launches on the main path {launches[name]}")
     # a verify_commit launches K1, K2 and K4 once each
     device_ms = sum(t[n][0] for n in ("parse_verify_payload", "sha512_blocks", "verify_cached"))
     log(f"[5] total {time.perf_counter() - t_start:.1f} s; verify_commit p50 {p50:.3f} ms, of which "
@@ -420,7 +445,7 @@ def main() -> int:
     log(json.dumps({"kernels": kernels, "verify_commit_p50_ms": p50,
                     "verify_phases_p50_ms": phase_p50, "table_build_cold_ms": cold_build_ms,
                     "table_build_warm_ms": warm_build_ms, "kernel_ms_per_verify": device_ms,
-                    "peak_mem_bytes": peak, "V": V_MAIN, "card": smi}))
+                    "peak_mem_bytes": peak}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -1,7 +1,7 @@
 """Build and load the CUDA kernels: ``nvcc`` into shared libraries with a
 plain C interface, loaded with ``ctypes``.
 
-Each ``csrc/*.cu`` source builds into its own ``build/lib<name>.so``,
+Each ``csrc/*.cu`` source builds into its own ``build/cuda/lib<name>-<hash>.so``,
 all sources compiling in parallel (one ``nvcc`` process each), at first
 use.  A library is rebuilt when the hash of the sources it was built from
 changes.  A failed build raises :class:`BuildError`; there is no fallback.
@@ -58,7 +58,9 @@ class KernelError(RuntimeError):
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
-BUILD_LOG: dict[str, dict] = {}  # name -> {"seconds", "ptxas"}
+# name -> {"seconds", "ptxas", "cached"}; a cached library's ptxas report
+# is the one kept beside it (lib<name>-<hash>.so.ptxas) from its build
+BUILD_LOG: dict[str, dict] = {}
 
 
 def _sources_hash(name: str) -> str:
@@ -92,21 +94,27 @@ def build_all(names=None) -> dict[str, ctypes.CDLL]:
         procs = {}
         for n in todo:
             out = os.path.join(BUILD_DIR, f"lib{n}-{_sources_hash(n)}.so")
-            if os.path.exists(out):
+            if os.path.exists(out) and os.path.exists(out + ".ptxas"):
+                with open(out + ".ptxas") as f:
+                    BUILD_LOG[n] = {"seconds": 0.0, "ptxas": f.read(), "cached": True}
                 continue
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", out + ".tmp",
-                   os.path.join(CSRC, f"{n}.cu")]
+            tmp = f"{out}.{os.getpid()}.tmp"  # concurrent builders never share it
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
             procs[n] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-            ), out, time.perf_counter())
+            ), out, tmp, time.perf_counter())
         failed = []
-        for n, (proc, out, t0) in procs.items():
+        for n, (proc, out, tmp, t0) in procs.items():
             log, _ = proc.communicate()
-            BUILD_LOG[n] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+            BUILD_LOG[n] = {"seconds": time.perf_counter() - t0, "ptxas": log, "cached": False}
             if proc.returncode != 0:
                 failed.append(f"{n}.cu (exit {proc.returncode}):\n{log}")
             else:
-                os.replace(out + ".tmp", out)
+                # the ptxas report first: a library on disk always has one
+                with open(f"{tmp}.ptxas", "w") as f:
+                    f.write(log)
+                os.replace(f"{tmp}.ptxas", out + ".ptxas")
+                os.replace(tmp, out)
         if failed:
             raise BuildError("nvcc failed for " + "\n".join(failed))
         for n in todo:

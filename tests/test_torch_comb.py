@@ -1,17 +1,18 @@
 """Parity of the port's comb half (cometbft_tpu_torch/ops/comb.py: K3
 build_a_tables and K4 verify_cached, their plain versions; the fused
 models/comb_verifier.device_verify; convert.py) against the JAX package:
-its host table builders (numpy, no compile) and, in the slow tier, its
-jitted comb program.  Exact equality of canonical table encodings and
-verdict bitmaps."""
+its host table builders (numpy, no compile), its host bigint ed25519
+verify (cometbft_tpu/crypto/_ref25519.py, plain Python) and, in the slow
+tier, its jitted comb program.  Exact equality of canonical table
+encodings and verdict bitmaps."""
 
 import numpy as np
 import pytest
 import torch
 
+from cometbft_tpu.crypto import _ref25519 as jref
 from cometbft_tpu.ops import comb as jcomb
 from cometbft_tpu_torch import convert
-from cometbft_tpu_torch.crypto import _ref25519 as ref
 from cometbft_tpu_torch.crypto import ed25519 as host
 from cometbft_tpu_torch.models import comb_verifier as cv
 from cometbft_tpu_torch.ops import comb
@@ -26,15 +27,15 @@ V = 8
 def _off_curve() -> bytes:
     return next(
         y.to_bytes(32, "little") for y in range(2, 1000)
-        if ref.decompress(y.to_bytes(32, "little")) is None
+        if jref.decompress(y.to_bytes(32, "little")) is None
     )
 
 
 def _non_canonical() -> bytes:
     """An encoding with y >= p that still decodes (ZIP-215 accepts it)."""
     return next(
-        (ref.P + d).to_bytes(32, "little") for d in range(19)
-        if ref.decompress((ref.P + d).to_bytes(32, "little")) is not None
+        (jref.P + d).to_bytes(32, "little") for d in range(19)
+        if jref.decompress((jref.P + d).to_bytes(32, "little")) is not None
     )
 
 
@@ -68,10 +69,15 @@ def test_build_a_tables_matches_jax_host_build(pubs, port_tables):
 
 
 def test_build_a_tables_matches_bigint_oracle(pubs, port_tables):
+    """The plain K3 against the port's host bigint build, and that host
+    build (chip_smoke's oracle on the card) against the JAX package's."""
     tables, valid = port_tables
     th, vh = comb.build_a_tables_host(pubs)
     assert np.array_equal(tables.numpy().view(np.uint32), th)
     assert np.array_equal(valid.numpy(), vh)
+    jt, jv = jcomb.build_a_tables_host(pubs)
+    assert np.array_equal(vh, jv)
+    assert np.array_equal(convert.a_tables_to_canonical(th), convert.jax_a_tables_to_canonical(jt))
 
 
 def test_tables_from_jax_round_trip(pubs, port_tables):
@@ -100,7 +106,7 @@ def _items(keys, pubs_bytes, bad=()):
         if kind == "msg":
             msg = msg[:-1] + bytes([msg[-1] ^ 1])
         elif kind == "s":
-            s = int.from_bytes(sig[32:], "little") + ref.L
+            s = int.from_bytes(sig[32:], "little") + jref.L
             sig = sig[:32] + s.to_bytes(32, "little")
         elif kind == "r":
             sig = _off_curve() + sig[32:]
@@ -125,7 +131,7 @@ def test_device_verify_matches_host_oracle(signed_set, bad):
     for it in items:
         bv.add(*it)
     ok, per = bv.verify()
-    expect = [ref.verify(p, m, s) for p, m, s in items]
+    expect = [jref.verify(p, m, s) for p, m, s in items]
     assert per == expect and ok == all(expect)
     assert set(bv.last_timings) >= {"assembly_ms", "h2d_dispatch_ms", "device_wait_ms", "submit_ms", "kernel_ms"}
 
@@ -153,7 +159,7 @@ def test_slab_reuse_ignores_stale_bytes(signed_set):
         for it in items:
             bv.add(*it)
         ok, per = bv.verify()
-        assert per == [ref.verify(*it) for it in items]
+        assert per == [jref.verify(*it) for it in items]
 
 
 def test_foreign_and_duplicate_keys_name_the_straus_slice(signed_set):
