@@ -1,25 +1,42 @@
-"""Chip smoke test of the PyTorch/CUDA port: drives the port's main path —
+"""Chip smoke test of the PyTorch/CUDA port: drives the port's paths —
 ed25519 VerifyCommit over a 10,000-validator commit through the
-comb-cached kernels — on one NVIDIA card, holds each kernel against its
-plain PyTorch version, and prints the card's numbers.
+comb-cached kernels, the uncached (Straus) verifier at the same width, a
+validator-set change with its background churn build, a light-client
+trusting check on 150 validators, and the comb verifier's demotion — on
+one NVIDIA card, holds each kernel against its plain PyTorch version,
+and prints the card's numbers.
 
     python3 chip_smoke.py
 
-Phases (each prints its own lines; any failure raises and exits non-zero):
+Phases (each prints its own lines; any failure raises and exits non-zero).
+Every path is driven with every kernel launch count zeroed just before
+it and read just after it.
   1. device and build: the card's name and power limit, the nvcc build of
      every kernel source with its -Xptxas -v register and spill counts;
-  2. the main path, with every kernel launch count zeroed just before and
-     read just after: the set's table build, verify_commit on a good
-     commit, verify_commit on a commit with planted faults (blame on the
-     first planted index);
-  3. each kernel against its plain version on the card at the main path's
-     shapes (byte-exact), the planted commit's bitmap against the plain
-     version on every row and the host oracle on the planted rows plus
-     256 sampled rows;
-  4. times on the card: the table build, verify_commit p50 with the
-     verifier's phase timings, each kernel and its plain version by CUDA
-     events, peak device memory;
-  5. one JSON line with every kernel, then the contract line.
+  2. the comb path: the set's table build (a synchronous ensure, as
+     bench.py forces), verify_commit on a good commit and on a commit
+     with planted faults (blame on the first planted index);
+  3. K1-K4 against their plain versions at the comb path's shapes
+     (byte-exact), the planted commit's bitmap against the plain version
+     on every row and the host oracle on the planted rows plus 256
+     sampled rows;
+  4. times of the comb path: the table build, verify_commit p50 with the
+     verifier's phase timings (K4 and no K5 launched), each kernel and
+     its plain version by CUDA events, peak device memory;
+  5. the uncached path: the commit's 10,000 items with the planted faults
+     through the Straus verifier (16,384 lanes), K5 against its plain
+     version on every lane and the host oracle on the planted rows plus
+     256 sampled rows, p50 over 10 calls, K5's time;
+  6. a validator-set change: 100 of the 10,000 keys replaced; the first
+     verify_commit runs uncached (K5, no K4) and starts the background
+     churn build (K3 on a 128-key bucket, then K6); its tables against a
+     full K3 build; the next verify_commit runs K4; K6 against its plain
+     version and index_copy_, timed;
+  7. verify_commit_light_trusting (trust 1/3) on a 150-validator set:
+     K2 -> K5 at 256 lanes, p50, K5's time at 256 lanes;
+  8. demotion: comb batches with a foreign key and with a duplicate key
+     against the host oracle;
+  9. one JSON line with every kernel, then the contract line.
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
@@ -31,12 +48,15 @@ import os
 import subprocess
 import sys
 import time
+from fractions import Fraction
 
 import numpy as np
 import torch
 
 V_MAIN = 10_000  # validators on the main path
 V_K3_PARITY = 1_024  # K3 against its plain version
+N_CHURN = 100  # validators replaced in the set change (1%)
+V_LIGHT = 150  # the light client's trusted set
 MAXM = 128  # payload message bucket of the 125- and 126-byte vote sign-bytes
 CHAIN_ID = "cometbft-tpu-torch-smoke"
 SEED = 20261017
@@ -57,6 +77,9 @@ TIMING = {
     "sha512_blocks": (20, 2, 2, 1),
     "build_a_tables": (5, 2, 1, 0),
     "verify_cached": (10, 2, 1, 1),
+    "verify_batch": (10, 2, 1, 0),  # at 16,384 lanes (the plain version once, cold)
+    "verify_batch_256": (20, 2, 2, 1),  # at the light client's 256 lanes
+    "assemble_churn": (20, 2, 2, 1),
 }
 
 # The card's peaks (NVIDIA H100 SXM data sheet, at a 700 W power limit):
@@ -71,6 +94,11 @@ OPS_PER_FIELD_MUL = 100 * 4
 OPS_PER_SHA512_BLOCK = 5_000  # 80 rounds + 64 schedule steps of ~2,500 64-bit ops, x2 for 32-bit
 FIELD_MULS_PER_TABLE = 270 + 64 * (7 * 9 + 8) + 512 + 265 + 512 * 6  # K3, per validator
 FIELD_MULS_PER_VERIFY = 270 + 86 * 7 + 9 + 3 * 8  # K4, per lane
+# K5, per lane: two decompressions, the -A table (8 conversions, 1
+# doubling, 6 cached adds), 64 steps of 4 doublings + a cached add + a
+# mixed add, then -R and 3 doublings
+FIELD_MULS_PER_STRAUS = 2 * 270 + (8 + 8 + 6 * 8) + 64 * (4 * 8 + 8 + 7) + 9 + 3 * 8
+A_ROW_BYTES = 64 * 8 * 3 * 8 * 4  # one validator's comb table
 OPS_PER_SCALAR_REDUCE = (81 + 45) * 4  # K4 Barrett word products, per lane
 
 
@@ -118,8 +146,11 @@ def main() -> int:
     from cometbft_tpu_torch.crypto import _ref25519 as ref
     from cometbft_tpu_torch.crypto import ed25519 as host
     from cometbft_tpu_torch.models import comb_verifier as cv
-    from cometbft_tpu_torch.models.verifier import CpuEd25519BatchVerifier
+    from cometbft_tpu_torch.models.verifier import (
+        CpuEd25519BatchVerifier, Ed25519BatchVerifier, stage_batch,
+    )
     from cometbft_tpu_torch.ops import comb, sha2
+    from cometbft_tpu_torch.ops import ed25519 as E
     from cometbft_tpu_torch import types as T
     from cometbft_tpu_torch.types import validation
     from cometbft_tpu_torch.wire.canonical import PRECOMMIT_TYPE, Timestamp
@@ -128,6 +159,19 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
     t_start = time.perf_counter()
+    counters = (sha2.LAUNCHES, comb.LAUNCHES, E.LAUNCHES, cv.LAUNCHES)
+    path_launches = {}  # path -> launches read just after it
+
+    def zero_counts():
+        for d in counters:
+            for k in d:
+                d[k] = 0
+
+    def read_counts(path=None):
+        got = {k: v for d in counters for k, v in d.items()}
+        if path is not None:
+            path_launches[path] = got
+        return got
 
     # ---------------------------------------------------- 1. device, build
     log(f"[1] device: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -194,14 +238,16 @@ def main() -> int:
     faulted = T.Commit(height=height, round=0, block_id=bid, signatures=fsigs)
     first_bad = min(planted)
 
-    # ---------------------------------------------------- 2. main path
+    # ---------------------------------------------------- 2. comb path
+    # A set of 10,000 routes to a background table build and verifies
+    # uncached until it lands (phase 6 drives that); here the tables are
+    # built synchronously first, as bench.py forces, so both calls take
+    # the warm comb path.
     torch.cuda.reset_peak_memory_stats()
     cache = cv.ValsetCombCache()
-    counters = (sha2.LAUNCHES, comb.LAUNCHES)
-    for d in counters:
-        for k in d:
-            d[k] = 0
+    zero_counts()
     t0 = time.perf_counter()
+    cache.ensure(vals.pub_keys_bytes(), device=dev)
     validation.verify_commit(CHAIN_ID, vals, bid, height, good, device="cuda", comb_cache=cache)
     t_first = time.perf_counter() - t0
     try:
@@ -210,12 +256,15 @@ def main() -> int:
         blame = str(e)
     else:
         raise AssertionError("the planted commit verified")
-    launches = {**sha2.LAUNCHES, **comb.LAUNCHES}
-    log(f"[2] main path: good commit verified ({t_first:.2f} s incl. the table build "
+    launches = read_counts("comb")
+    log(f"[2] comb path: good commit verified ({t_first:.2f} s incl. the table build "
         f"of {cache.last_build_ms:.1f} ms); planted commit raised: {blame[:60]}...")
-    log(f"[2] launches on the main path: {launches}")
+    log(f"[2] launches on the comb path: {launches}")
     require(blame.startswith(f"wrong signature (#{first_bad}):"), f"blame {blame!r} != #{first_bad}")
-    require(all(n > 0 for n in launches.values()), f"a kernel of the path never launched: {launches}")
+    comb_path = ("parse_verify_payload", "sha512_blocks", "build_a_tables", "verify_cached")
+    require(all(launches[k] > 0 for k in comb_path), f"a kernel of the path never launched: {launches}")
+    require(launches["verify_batch"] == 0 and launches["assemble_churn"] == 0,
+            f"the warm comb path launched K5 or K6: {launches}")
     peak = torch.cuda.max_memory_allocated()
 
     # ---------------------------------------------------- 3. parity
@@ -301,10 +350,14 @@ def main() -> int:
 
     # ---------------------------------------------------- 4. times
     walls, phases = [], []
+    zero_counts()
     for _ in range(12):
         t0 = time.perf_counter()
         validation.verify_commit(CHAIN_ID, vals, bid, height, good, device="cuda", comb_cache=cache)
         walls.append((time.perf_counter() - t0) * 1e3)
+    timed = read_counts()
+    require(timed["verify_cached"] == 12 and timed["verify_batch"] == 0,
+            f"the timed calls did not all take the warm comb path: {timed}")
     walls = walls[2:]
     good_items = []
     for i, cs in enumerate(good.signatures):
@@ -380,15 +433,258 @@ def main() -> int:
             "main-path tables != plain K3")
     del tab_p10k, val_p10k
     cold_build_ms = cache.last_build_ms
-    cache.ensure(list(reversed(vals.pub_keys_bytes())), device=dev)  # a second set: warm build
-    warm_build_ms = cache.last_build_ms
-    log(f"[4] table build (V={V_MAIN}, host clock around K3's wrapper and a synchronize): "
+    # a second set in a cache of its own (no churn base): a full, warm K3 build
+    second = cv.ValsetCombCache()
+    second.ensure(list(reversed(vals.pub_keys_bytes())), device=dev)
+    warm_build_ms = second.last_build_ms
+    del second
+    log(f"[4] table build (V={V_MAIN}, host clock around K3 and a wait on its build stream): "
         f"{cold_build_ms:.1f} ms in the main path (the process's first K3 launch), "
         f"{warm_build_ms:.1f} ms for a second set")
     log(f"[4] peak device memory on the main path: {peak / 2**20:.1f} MiB")
 
+    # ---------------------------------------------------- 5. uncached path
+    # the commit's 10,000 items with phase 2's planted faults, through the
+    # Straus verifier: 16,384 lanes, padding lanes repeating row 0
+    u_items = list(good_items)
+    for i in planted:
+        u_items[i] = items[rows.index(i)]
+    zero_counts()
+    ubv = Ed25519BatchVerifier(device=dev)
+    for it in u_items:
+        ubv.add(*it)
+    u_ok, u_per = ubv.verify()
+    u_launch = read_counts("uncached")
+    log(f"[5] uncached path: {len(u_items)} items, launches {u_launch}")
+    require(u_launch["verify_batch"] == 1 and u_launch["sha512_blocks"] == 1
+            and u_launch["verify_cached"] == 0, f"uncached path launches {u_launch}")
+    ua, ur, us, ublk, uact = stage_batch(u_items, dev)
+    lanes = ua.shape[0]
+    require(lanes == 16_384, f"bucket {lanes}")
+    udig = sha2.sha512_blocks(ublk, uact)
+    k5_out = E.verify_digest(ua, ur, us, udig)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    k5_plain = E.verify_digest_plain(ua, ur, us, udig)  # the plain K5, once, cold
+    end.record()
+    torch.cuda.synchronize()
+    plain5_ms = start.elapsed_time(end)
+    require(torch.equal(k5_out, k5_plain), "K5 != plain")
+    results["verify_batch"] = max_abs_err(k5_out, k5_plain)
+    require(k5_out[:V_MAIN].tolist() == u_per, "Ed25519BatchVerifier verdicts != K5")
+    check_u = sorted(set(planted) | set(rng.choice(V_MAIN, N_ORACLE_SAMPLE, replace=False).tolist()))
+    oracle = CpuEd25519BatchVerifier()
+    for i in check_u:
+        oracle.add(*u_items[i])
+    _, oracle_ok = oracle.verify()
+    require([u_per[i] for i in check_u] == oracle_ok, "uncached verdicts != host oracle")
+    require(not u_ok and all(not u_per[i] for i in planted)
+            and sum(u_per) == V_MAIN - len(planted), "uncached planted rows")
+    log(f"[5] K5 == plain on all {lanes} lanes; == host oracle on {len(check_u)} rows "
+        f"(planted {sorted(planted)})")
+    walls_u, phases_u = [], []
+    for _ in range(12):
+        bv = Ed25519BatchVerifier(device=dev)
+        for it in u_items:
+            bv.add(*it)
+        t0 = time.perf_counter()
+        bv.verify()
+        walls_u.append((time.perf_counter() - t0) * 1e3)
+        phases_u.append(dict(bv.last_timings))
+    walls_u, phases_u = walls_u[2:], phases_u[2:]
+    p50_u = float(np.median(walls_u))
+    phase_p50_u = {k: float(np.median([p[k] for p in phases_u])) for k in phases_u[0]}
+    log(f"[5] uncached verify p50 {p50_u:.2f} ms over {len(walls_u)} calls "
+        f"(min {min(walls_u):.2f}, max {max(walls_u):.2f}); phases p50 (ms): "
+        + json.dumps({k: round(v, 3) for k, v in phase_p50_u.items()}))
+    bwin = E.b_window(dev)
+    out5 = torch.empty((lanes,), dtype=torch.uint8, device=dev)
+    it, wu, _, _ = TIMING["verify_batch"]
+    t["verify_batch"] = (cuda_ms(lambda: E.launch_k5(ua, ur, us, udig, bwin, out5), it, wu), plain5_ms)
+
+    # ---------------------------------------------------- 6. set change
+    rng_c = np.random.default_rng(SEED + 1)
+    gone = set(rng_c.choice(V_MAIN, N_CHURN, replace=False).tolist())
+    new_keys = [host.PrivKey.from_seed(rng_c.bytes(32)) for _ in range(N_CHURN)]
+    vals2 = T.ValidatorSet([v for i, v in enumerate(vals.validators) if i not in gone]
+                           + [T.Validator(k.pub_key(), 10) for k in new_keys])
+    old_sig = {cs.validator_address: cs for cs in good.signatures}
+    new_by_addr = {k.pub_key().address(): k for k in new_keys}
+    nanos2 = iter(rng_c.integers(0, 1_000_000_000, size=N_CHURN).tolist())
+    sigs2 = []
+    for i, v in enumerate(vals2.validators):
+        cs = old_sig.get(v.address)  # sign-bytes do not depend on the validator's index
+        if cs is None:
+            vote = T.Vote(
+                type=PRECOMMIT_TYPE, height=height, round=0, block_id=bid,
+                timestamp=Timestamp(seconds=TS_SECONDS, nanos=next(nanos2)),
+                validator_address=v.address, validator_index=i,
+            )
+            vote.signature = new_by_addr[v.address].sign(vote.sign_bytes(CHAIN_ID))
+            cs = vote.to_commit_sig()
+        sigs2.append(cs)
+    commit2 = T.Commit(height=height, round=0, block_id=bid, signatures=sigs2)
+    pubs2 = vals2.pub_keys_bytes()
+    n_fresh = sum(pk not in entry.index for pk in pubs2)
+    require(n_fresh == N_CHURN, f"{n_fresh} fresh keys")
+    zero_counts()
+    t0 = time.perf_counter()
+    validation.verify_commit(CHAIN_ID, vals2, bid, height, commit2, device="cuda", comb_cache=cache)
+    change_first_ms = (time.perf_counter() - t0) * 1e3
+    first = read_counts()
+    require(first["verify_batch"] == 1 and first["verify_cached"] == 0,
+            f"the first call under the new set did not run uncached: {first}")
+    cache.join_async()
+    c_build = read_counts("set_change")
+    churn_ms = cache.last_build_ms
+    entry2 = cache.ensure_async(pubs2, device=dev)
+    require(entry2 is not None, "the background build left no entry")
+    require(c_build["build_a_tables"] == 1 and c_build["assemble_churn"] == 1,
+            f"the background build did not run K3 then K6: {c_build}")
+    full = cv.ValsetCombCache()
+    full_entry = full.ensure(pubs2, device=dev)
+    full_ms = full.last_build_ms
+    require(torch.equal(entry2.tables, full_entry.tables) and torch.equal(entry2.valid, full_entry.valid),
+            "churn-built tables != a full K3 build")
+    del full, full_entry
+    # the same churn build alone: a cache holding only the old set, then a
+    # synchronous ensure of the new set (no verify_commit beside it)
+    solo = cv.ValsetCombCache()
+    solo.ensure(vals.pub_keys_bytes(), device=dev)
+    solo_entry = solo.ensure(pubs2, device=dev)
+    churn_solo_ms = solo.last_build_ms
+    require(torch.equal(solo_entry.tables, entry2.tables), "solo churn build != background build")
+    del solo, solo_entry
+    zero_counts()
+    validation.verify_commit(CHAIN_ID, vals2, bid, height, commit2, device="cuda", comb_cache=cache)
+    c_next = read_counts("set_change_next")
+    require(c_next["verify_cached"] == 1 and c_next["verify_batch"] == 0,
+            f"the call after the build did not take the comb path: {c_next}")
+    bucket = 1 << (N_CHURN - 1).bit_length()
+    log(f"[6] set change ({N_CHURN} of {V_MAIN} keys replaced): first verify_commit "
+        f"{change_first_ms:.1f} ms uncached, launches {first}; background build "
+        f"(K3 on a {bucket}-key bucket, then K6) {churn_ms:.1f} ms beside that call, "
+        f"{churn_solo_ms:.1f} ms alone, launches {c_build}; its tables == a full K3 build of "
+        f"the new set ({full_ms:.1f} ms); next call launches {c_next}")
+
+    # K6 against its plain version at V = 10,000, on the change's rows
+    fresh = [i for i, pk in enumerate(pubs2) if pk not in entry.index]
+    reuse = [(i, entry.index[pk]) for i, pk in enumerate(pubs2) if pk in entry.index]
+    padded = fresh + [fresh[0]] * (bucket - len(fresh))
+    bucket_pubs = entry2.pubs[torch.tensor(padded, device=dev)]
+    t_new, v_new = comb.build_a_tables(bucket_pubs)
+    it, wu, _, _ = TIMING["build_a_tables"]
+    k3_bucket_ms = cuda_ms(lambda: comb.build_a_tables(bucket_pubs), it, wu)
+    nr, br, fr = (torch.tensor(x, dtype=torch.int64, device=dev)
+                  for x in ([i for i, _ in reuse], [j for _, j in reuse], fresh))
+    k6_t, k6_v = cv.assemble_churn(entry.tables, entry.valid, t_new, v_new, nr, br, fr, V_MAIN)
+    p6_t, p6_v = cv.assemble_churn_plain(entry.tables, entry.valid, t_new, v_new, nr, br, fr, V_MAIN)
+    torch.cuda.synchronize()
+    require(torch.equal(k6_t, p6_t) and torch.equal(k6_v, p6_v), "K6 != plain")
+    require(torch.equal(k6_t, entry2.tables), "K6 != the background build's tables")
+    results["assemble_churn"] = max(max_abs_err(k6_t, p6_t), max_abs_err(k6_v, p6_v))
+    del k6_t, k6_v, p6_t, p6_v
+    src = torch.full((V_MAIN,), -(1 << 31), dtype=torch.int32, device=dev)
+    src[nr] = br.to(torch.int32)
+    src[fr] = -1 - torch.arange(len(fresh), dtype=torch.int32, device=dev)
+    out6 = torch.empty_like(entry.tables)
+    val6 = torch.empty((V_MAIN,), dtype=torch.bool, device=dev)
+    it, wu, pit, pwu = TIMING["assemble_churn"]
+    t["assemble_churn"] = (
+        cuda_ms(lambda: cv.launch_k6(entry.tables, entry.valid, t_new, v_new, src, out6, val6), it, wu),
+        cuda_ms(lambda: cv.assemble_churn_plain(entry.tables, entry.valid, t_new, v_new, nr, br, fr,
+                                                V_MAIN), pit, pwu),
+    )
+    # the library yardstick: one index_copy_ of the gathered rows into a
+    # zeroed tensor (the gather itself is done once, outside the timing)
+    dest = torch.cat([nr, fr])
+    gathered = torch.cat([entry.tables[br], t_new[: len(fresh)]])
+    zeroed = torch.zeros_like(entry.tables)
+    zeroed.index_copy_(0, dest, gathered)
+    require(torch.equal(zeroed, entry2.tables), "index_copy_ != the churn tables")
+    lib6_ms = cuda_ms(lambda: zeroed.index_copy_(0, dest, gathered), it, wu)
+    del out6, gathered, zeroed, t_new
+    log(f"[6] K6 == plain at V={V_MAIN} ({len(reuse)} reused rows, {len(fresh)} fresh); "
+        f"K3 on the {bucket}-key bucket {k3_bucket_ms:.4f} ms by CUDA events (its wrapper's "
+        f"allocations included)")
+
+    # ---------------------------------------------------- 7. light client
+    rng_l = np.random.default_rng(SEED + 2)
+    lkeys = [host.PrivKey.from_seed(rng_l.bytes(32)) for _ in range(V_LIGHT)]
+    lvals = T.ValidatorSet([T.Validator(k.pub_key(), 10) for k in lkeys])
+    l_by_addr = {k.pub_key().address(): k for k in lkeys}
+    lnanos = rng_l.integers(0, 1_000_000_000, size=V_LIGHT).tolist()
+    lsigs = []
+    for i, v in enumerate(lvals.validators):
+        vote = T.Vote(
+            type=PRECOMMIT_TYPE, height=height, round=0, block_id=bid,
+            timestamp=Timestamp(seconds=TS_SECONDS, nanos=lnanos[i]),
+            validator_address=v.address, validator_index=i,
+        )
+        vote.signature = l_by_addr[v.address].sign(vote.sign_bytes(CHAIN_ID))
+        lsigs.append(vote.to_commit_sig())
+    lcommit = T.Commit(height=height, round=0, block_id=bid, signatures=lsigs)
+    zero_counts()
+    walls_l = []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        # every signature counted: all 150 go through the kernel (256 lanes)
+        validation.verify_commit_light_trusting(
+            CHAIN_ID, lvals, lcommit, Fraction(1, 3), count_all_signatures=True,
+            device="cuda", comb_cache=cache)
+        walls_l.append((time.perf_counter() - t0) * 1e3)
+    c_light = read_counts("light")
+    require(c_light["verify_batch"] == 12 and c_light["verify_cached"] == 0
+            and c_light["build_a_tables"] == 0, f"light-client launches {c_light}")
+    walls_l = walls_l[2:]
+    p50_l = float(np.median(walls_l))
+    lsb = lcommit.vote_sign_bytes_fn(CHAIN_ID)
+    l_items = [(lvals.validators[i].pub_key.bytes(), lsb(i), cs.signature) for i, cs in enumerate(lsigs)]
+    la, lr, ls, lblk, lact = stage_batch(l_items, dev)
+    require(la.shape[0] == 256, f"light bucket {la.shape[0]}")
+    ldig = sha2.sha512_blocks(lblk, lact)
+    l_k5, l_plain = E.verify_digest(la, lr, ls, ldig), E.verify_digest_plain(la, lr, ls, ldig)
+    torch.cuda.synchronize()
+    require(torch.equal(l_k5, l_plain) and bool(l_k5.all()), "K5 != plain at 256 lanes")
+    out5l = torch.empty((256,), dtype=torch.uint8, device=dev)
+    it, wu, pit, pwu = TIMING["verify_batch_256"]
+    t["verify_batch_256"] = (
+        cuda_ms(lambda: E.launch_k5(la, lr, ls, ldig, bwin, out5l), it, wu),
+        cuda_ms(lambda: E.verify_digest_plain(la, lr, ls, ldig), pit, pwu),
+    )
+    log(f"[7] light-client trusting check ({V_LIGHT} validators, trust 1/3, 256 lanes): p50 "
+        f"{p50_l:.2f} ms over {len(walls_l)} calls (min {min(walls_l):.2f}, max {max(walls_l):.2f}); "
+        f"launches {c_light}; K5 == plain at 256 lanes")
+
+    # ---------------------------------------------------- 8. demotion
+    fk = host.PrivKey.from_seed(rng.bytes(32))
+    fmsg = b"a vote from outside the set"
+    sub = good_items[:40]
+    batches = {
+        "foreign": sub[:20] + [(fk.pub_key().data, fmsg, fk.sign(fmsg))] + sub[20:]
+        + [u_items[I_S_GE_L]],
+        "duplicate": sub[:30] + [sub[3]] + sub[30:] + [u_items[I_FLIP]],
+    }
+    zero_counts()
+    for name, batch in batches.items():
+        bv = cv.CombBatchVerifier(entry)
+        for it_ in batch:
+            bv.add(*it_)
+        ok, per = bv.verify()
+        oracle = CpuEd25519BatchVerifier()
+        for it_ in batch:
+            oracle.add(*it_)
+        require((ok, per) == oracle.verify(), f"demoted {name} batch != host oracle")
+        require(not ok and sum(per) == len(batch) - 1, f"demoted {name} batch verdicts")
+    c_dem = read_counts("demotion")
+    require(c_dem["verify_batch"] == 2 and c_dem["verify_cached"] == 0, f"demotion launches {c_dem}")
+    log(f"[8] demotion: a foreign key and a duplicate key each demote a comb batch to the "
+        f"uncached verifier; verdicts == host oracle; launches {c_dem}")
+
+    # ---------------------------------------------------- 9. the record
     # bounds from this run's shapes and data
     width = good_payload.shape[1]
+    k5_ops = FIELD_MULS_PER_STRAUS * OPS_PER_FIELD_MUL + OPS_PER_SCALAR_REDUCE
     bound = {
         "parse_verify_payload": (
             "bytes", (V_MAIN * width + V_MAIN * 32 + V_MAIN * nb * 128 + V_MAIN * 4) / HBM_BYTES_PER_S),
@@ -400,6 +696,9 @@ def main() -> int:
             / INT32_OPS_PER_S),
         "build_a_tables": (
             "operations", V_MAIN * FIELD_MULS_PER_TABLE * OPS_PER_FIELD_MUL / INT32_OPS_PER_S),
+        "verify_batch": ("operations", lanes * k5_ops / INT32_OPS_PER_S),
+        "verify_batch_256": ("operations", 256 * k5_ops / INT32_OPS_PER_S),
+        "assemble_churn": ("bytes", (2 * V_MAIN * A_ROW_BYTES + V_MAIN * 6) / HBM_BYTES_PER_S),
     }
     # the other side of each bound, logged for the record
     other = {
@@ -407,6 +706,9 @@ def main() -> int:
         "sha512_blocks": (V_MAIN * nb * 128 + V_MAIN * 4 + V_MAIN * 64) / HBM_BYTES_PER_S,
         "verify_cached": (V_MAIN * 86 * 96 + V_MAIN * (width + 64)) / HBM_BYTES_PER_S,
         "build_a_tables": (V_MAIN * 32 + V_MAIN * 64 * 8 * 96) / HBM_BYTES_PER_S,
+        "verify_batch": lanes * (3 * 32 + 64 + 1) / HBM_BYTES_PER_S,
+        "verify_batch_256": 256 * (3 * 32 + 64 + 1) / HBM_BYTES_PER_S,
+        "assemble_churn": 0.0,
     }
     meta = {
         "parse_verify_payload": ("K1", "cometbft_tpu_torch/csrc/sha2.cu",
@@ -419,33 +721,57 @@ def main() -> int:
                           "cometbft_tpu/ops/comb.py:484",
                           ["comb_verify_cached_tree", "comb_verify_cached_seq",
                            "comb_device_verify"]),
+        "verify_batch": ("K5", "cometbft_tpu_torch/csrc/ed25519.cu",
+                         "cometbft_tpu/ops/ed25519.py:380", ["ed25519_verify_batch"]),
+        "assemble_churn": ("K6", "cometbft_tpu_torch/csrc/churn.cu",
+                           "cometbft_tpu/models/comb_verifier.py:391", ["comb_assemble_churn"]),
     }
+    library = {"assemble_churn": lib6_ms}
+    total_launches = {k: sum(p[k] for p in path_launches.values()) for k in read_counts()}
+    log(f"[9] launches per path (each read just after the path): {json.dumps(path_launches)}")
     kernels = []
-    for name in ("parse_verify_payload", "sha512_blocks", "build_a_tables", "verify_cached"):
-        tag, src, rep, rows_ = meta[name]
+    for name in meta:
+        tag, src_, rep, rows_ = meta[name]
         ms, plain_ms = t[name]
         by, secs = bound[name]
-        kernels.append({
-            "name": name, "tag": tag, "route": "cuda", "source": src, "replaces": rep,
-            "manifest_rows": rows_, "launches": launches[name],
+        rec = {
+            "name": name, "tag": tag, "route": "cuda", "source": src_, "replaces": rep,
+            "manifest_rows": rows_, "launches": total_launches[name],
             "max_abs_err": results[name], "parity": results[name] == 0,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": secs * 1e3, "bound_by": by,
-            "library_ms": None,
-        })
-        it, wu, pit, pwu = TIMING[name]
-        log(f"[4] {tag} {name}: {ms:.4f} ms over {it} launches after {wu} warm-up "
-            f"(plain {plain_ms:.2f} ms over {pit} after {pwu}); bound {secs * 1e3:.4f} ms by {by}, "
-            f"other side {other[name] * 1e3:.4f} ms; launches on the main path {launches[name]}")
+            "library_ms": library.get(name),
+        }
+        if name == "verify_batch":
+            rec.update(lanes=lanes, ms_256=t["verify_batch_256"][0],
+                       plain_ms_256=t["verify_batch_256"][1],
+                       bound_ms_256=bound["verify_batch_256"][1] * 1e3)
+        kernels.append(rec)
+        for key in (name, "verify_batch_256") if name == "verify_batch" else (name,):
+            it, wu, pit, pwu = TIMING[key]
+            ms, plain_ms = t[key]
+            by, secs = bound[key]
+            lib_note = f"; library {library[name]:.4f} ms" if name in library else ""
+            log(f"[9] {tag} {key}: {ms:.4f} ms over {it} launches after {wu} warm-up "
+                f"(plain {plain_ms:.2f} ms over {pit} after {pwu}); bound {secs * 1e3:.4f} ms by "
+                f"{by}, other side {other[key] * 1e3:.4f} ms{lib_note}; launches over the paths "
+                f"{total_launches[name]}")
     # a verify_commit launches K1, K2 and K4 once each
     device_ms = sum(t[n][0] for n in ("parse_verify_payload", "sha512_blocks", "verify_cached"))
-    log(f"[5] total {time.perf_counter() - t_start:.1f} s; verify_commit p50 {p50:.3f} ms, of which "
+    log(f"[9] total {time.perf_counter() - t_start:.1f} s; verify_commit p50 {p50:.3f} ms, of which "
         f"kernels {device_ms:.3f} ms ({100 * device_ms / p50:.2f}% device busy); table build "
-        f"{cold_build_ms:.1f} ms cold, {warm_build_ms:.1f} ms warm")
+        f"{cold_build_ms:.1f} ms cold, {warm_build_ms:.1f} ms warm, churn {churn_ms:.1f} ms "
+        f"beside a verify_commit and {churn_solo_ms:.1f} ms alone, full build of the changed set "
+        f"{full_ms:.1f} ms; uncached p50 {p50_u:.2f} ms; "
+        f"light-client p50 {p50_l:.2f} ms")
     log(smi)
     log(json.dumps({"kernels": kernels, "verify_commit_p50_ms": p50,
                     "verify_phases_p50_ms": phase_p50, "table_build_cold_ms": cold_build_ms,
                     "table_build_warm_ms": warm_build_ms, "kernel_ms_per_verify": device_ms,
-                    "peak_mem_bytes": peak}))
+                    "peak_mem_bytes": peak, "uncached_p50_ms": p50_u,
+                    "uncached_phases_p50_ms": phase_p50_u,
+                    "set_change_first_call_ms": change_first_ms, "churn_build_ms": churn_ms,
+                    "churn_build_solo_ms": churn_solo_ms, "k3_bucket_ms": k3_bucket_ms,
+                    "full_build_changed_set_ms": full_ms, "light_trusting_p50_ms": p50_l}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -45,6 +45,14 @@ SIGNATURES = {
         # tables, valid, payload, width, digest, b_tables, scratch, out, V, stream
         "k4_verify_cached": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P],
     },
+    "ed25519": {
+        # a_enc, r_enc, s_enc, digest, b_window, out, n, stream
+        "k5_verify_batch": [_P, _P, _P, _P, _P, _P, _I, _P],
+    },
+    "churn": {
+        # base, base_valid, fresh, fresh_valid, src, out, valid, V, stream
+        "k6_assemble_churn": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+    },
 }
 
 

@@ -1,9 +1,10 @@
 """State carried across from the JAX package, and back to canonical bytes.
 
 The JAX package keeps comb tables as (64, 9, 3, 22, V) int32 frozen
-12-bit limbs (entry 0 is the identity) and the B table as
-(22, 66, 4096) float32 limbs for its MXU one-hot select.  The port keeps
-both as canonical little-endian u32 words (ops/comb.py).  Parity between
+12-bit limbs (entry 0 is the identity), the B table as (22, 66, 4096)
+float32 limbs for its MXU one-hot select, and the Straus B window as
+(16, 3, 22) int32 limbs.  The port keeps all three as canonical
+little-endian u32 words (ops/comb.py, ops/ed25519.py).  Parity between
 the two is checked on the canonical 32-byte encodings these helpers
 produce.
 """
@@ -66,6 +67,15 @@ def b_tables_from_jax(b_tables: np.ndarray, device="cuda") -> torch.Tensor:
     int32 words on ``device``."""
     dev = resolve_device(device)
     words = _bytes_to_words(jax_b_tables_to_canonical(b_tables))
+    return torch.from_numpy(words.view(np.int32).copy()).to(dev)
+
+
+def b_window_from_jax(b_window: np.ndarray, device="cuda") -> torch.Tensor:
+    """JAX (16, 3, 22) int32 B-window table (ops/ed25519._B_WINDOW: entry
+    j is j * B in Niels limbs) -> the port's (16, 3, 8) int32 words on
+    ``device`` (ops/ed25519.b_window)."""
+    dev = resolve_device(device)
+    words = _bytes_to_words(_jax_limbs_to_bytes(b_window))
     return torch.from_numpy(words.view(np.int32).copy()).to(dev)
 
 

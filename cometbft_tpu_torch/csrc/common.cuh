@@ -3,6 +3,7 @@
 // The per-lane arithmetic lives in headers as DEV functions: __device__
 // under nvcc, plain inline C++ otherwise, so the same code can also be
 // compiled by a host C++ compiler for a desk check of the arithmetic.
+// LDG is a load through the read-only data cache on the card.
 #pragma once
 
 #include <stddef.h>
@@ -13,11 +14,13 @@
 #define DCONST __constant__
 #define UNROLL _Pragma("unroll")
 #define NOUNROLL _Pragma("unroll 1")
+#define LDG(p) __ldg(p)
 #else
 #define DEV static inline
 #define DCONST
 #define UNROLL
 #define NOUNROLL
+#define LDG(p) (*(p))
 #endif
 
 // 256-bit little-endian values as 8 x u32 words.

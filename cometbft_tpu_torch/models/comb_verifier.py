@@ -15,10 +15,19 @@ one host-to-device copy of the payload and one device-to-host copy of
 Shapes are keyed by the validator-set size V: rows of validators that
 did not sign carry live = 0 and are masked out of the result, preserving
 the per-signature blame contract of types/validation.go:384-399.
+
+After a validator-set change the new set's tables are built
+incrementally from the previous set's entry (``ValsetCombCache._build``):
+K3 runs on the new keys only, and K6 (``assemble_churn``, csrc/churn.cu,
+replacing cometbft_tpu/models/comb_verifier.py:391 _assemble_churn)
+assembles the reused and fresh rows.  ``ensure_async`` runs that build in
+a background thread on its own CUDA stream while callers verify through
+the uncached kernel (models/verifier.Ed25519BatchVerifier).
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import threading
 import time
@@ -27,13 +36,12 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from .. import _build
 from .._device import resolve_device
 from ..ops import comb, sha2
+from .verifier import Ed25519BatchVerifier
 
-STRAUS_GAP = (
-    "the uncached (Straus) ed25519 kernel is not ported yet: this batch "
-    "needs it ({why}); it comes with the port's Straus slice"
-)
+LAUNCHES = {"assemble_churn": 0}
 
 
 class _PayloadSlab:
@@ -109,6 +117,7 @@ class ValsetCombCache:
         self._max = max_entries
         self._mtx = threading.Lock()
         self._building: dict[tuple, threading.Lock] = {}
+        self._async: dict[tuple, threading.Thread] = {}
         self._b_tables: dict[str, torch.Tensor] = {}
         self.last_build_ms: float | None = None
 
@@ -129,7 +138,10 @@ class ValsetCombCache:
     def ensure(self, pubkeys: list[bytes], device="cuda") -> _CacheEntry:
         """The entry for this exact pubkey list on ``device``, building
         the tables on first sight.  Concurrent first calls for the same
-        set serialize on a per-key lock: a build never races a duplicate."""
+        set serialize on a per-key lock: a build never races a duplicate.
+        When an entry for another set exists on the same device, its rows
+        are reused for the unchanged validators (an incremental churn
+        build): only the new keys go through K3."""
         dev = resolve_device(device)
         key = (str(dev), self.fingerprint(pubkeys))
         e = self.get(key)
@@ -141,13 +153,57 @@ class ValsetCombCache:
             e = self.get(key)  # the race loser finds the winner's entry
             if e is not None:
                 return e
-            entry = self._build(pubkeys, dev)
+            entry = self._build(pubkeys, dev, self._newest(str(dev)))
             with self._mtx:
                 self._entries[key] = entry
                 while len(self._entries) > self._max:
                     self._entries.popitem(last=False)
                 self._building.pop(key, None)
             return entry
+
+    def ensure_async(self, pubkeys: list[bytes], device="cuda") -> _CacheEntry | None:
+        """Non-blocking ensure (cometbft_tpu/models/comb_verifier.py:215):
+        the entry if it is ready, else None with one background build per
+        set started.  Callers verify through the uncached kernel until
+        the tables land, so a validator-set change never stalls behind a
+        table build."""
+        dev = resolve_device(device)
+        key = (str(dev), self.fingerprint(pubkeys))
+        e = self.get(key)
+        if e is not None:
+            return e
+        pubkeys = list(pubkeys)
+
+        def build():
+            try:
+                self.ensure(pubkeys, dev)
+            finally:
+                with self._mtx:
+                    self._async.pop(key, None)
+
+        with self._mtx:
+            if key in self._async:
+                return None  # its build is running
+            t = threading.Thread(target=build, name="comb-build", daemon=True)
+            self._async[key] = t
+        t.start()
+        return None
+
+    def join_async(self, timeout: float | None = None) -> None:
+        """Wait for the background builds running now (a caller about to
+        read the new entry, or to exit, waits here)."""
+        with self._mtx:
+            threads = list(self._async.values())
+        for t in threads:
+            t.join(timeout)
+
+    def _newest(self, dev: str) -> _CacheEntry | None:
+        """The most recently used entry on ``dev``: the churn base."""
+        with self._mtx:
+            for (d, _), e in reversed(self._entries.items()):
+                if d == dev:
+                    return e
+        return None
 
     def b_tables(self, dev: torch.device) -> torch.Tensor:
         with self._mtx:
@@ -158,17 +214,126 @@ class ValsetCombCache:
                 t = self._b_tables.setdefault(str(dev), t)
         return t
 
-    def _build(self, pubkeys: list[bytes], dev: torch.device) -> _CacheEntry:
+    def _build(self, pubkeys: list[bytes], dev: torch.device,
+               base: _CacheEntry | None = None) -> _CacheEntry:
+        """Tables for ``pubkeys`` (cometbft_tpu/models/comb_verifier.py:259).
+        With a ``base`` entry that shares keys, the rows of those keys are
+        reused: the fresh keys, padded to a power-of-two bucket with
+        copies of the first fresh key, go through K3, and K6 assembles
+        the rows.  Without reuse it is one K3 build of the whole set.
+
+        On the card the build runs on a stream of its own and waits for
+        that stream alone, so it neither waits for nor is billed for
+        verification work queued on other streams; ``last_build_ms`` is
+        the host clock around the build up to that wait."""
         index = {pk: i for i, pk in enumerate(pubkeys)}
         pub_arr = np.frombuffer(b"".join(pubkeys), dtype=np.uint8).reshape(-1, 32)
-        pubs = torch.from_numpy(pub_arr.copy()).to(dev)
+        reuse: list[tuple[int, int]] = []  # (new row, base row)
+        fresh: list[int] = []
+        if base is not None:
+            for i, pk in enumerate(pubkeys):
+                j = base.index.get(pk)
+                if j is None:
+                    fresh.append(i)
+                else:
+                    reuse.append((i, j))
         b_tab = self.b_tables(dev)
+        consumer = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+        stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         t0 = time.perf_counter()
-        tables, valid = comb.build_a_tables(pubs)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            pubs = torch.from_numpy(pub_arr.copy()).to(dev)
+            if not reuse:
+                tables, valid = comb.build_a_tables(pubs)
+            else:
+                if fresh:
+                    bucket = 1 << (len(fresh) - 1).bit_length()
+                    padded = fresh + [fresh[0]] * (bucket - len(fresh))
+                    t_new, v_new = comb.build_a_tables(pubs[torch.tensor(padded, device=dev)])
+                else:
+                    t_new, v_new = base.tables[:0], base.valid[:0]
+                tables, valid = assemble_churn(
+                    base.tables, base.valid, t_new, v_new,
+                    torch.tensor([i for i, _ in reuse], dtype=torch.int64, device=dev),
+                    torch.tensor([j for _, j in reuse], dtype=torch.int64, device=dev),
+                    torch.tensor(fresh, dtype=torch.int64, device=dev),
+                    len(pubkeys),
+                )
+        if stream is not None:
+            stream.synchronize()
+            # the entry's tensors come from the build stream's pool and are
+            # read on the caller's stream from now on
+            for t in (tables, valid, pubs):
+                t.record_stream(consumer)
         self.last_build_ms = (time.perf_counter() - t0) * 1e3
         return _CacheEntry(tables, valid, pubs, b_tab, index)
+
+
+def assemble_churn_plain(base_tables, base_valid, new_tables, new_valid, new_rows,
+                         base_rows, fresh_rows, V):
+    """Plain version of K6: the gather/scatter of
+    cometbft_tpu/models/comb_verifier.py:391 on the port's validator-major
+    layout (rows that neither index names stay zero and invalid)."""
+    tables = torch.zeros((V,) + tuple(base_tables.shape[1:]), dtype=base_tables.dtype,
+                         device=base_tables.device)
+    valid = torch.zeros((V,), dtype=torch.bool, device=base_tables.device)
+    tables[new_rows] = base_tables[base_rows]
+    valid[new_rows] = base_valid[base_rows]
+    nf = fresh_rows.shape[0]
+    if nf:
+        tables[fresh_rows] = new_tables[:nf]
+        valid[fresh_rows] = new_valid[:nf]
+    return tables, valid
+
+
+def assemble_churn(base_tables, base_valid, new_tables, new_valid, new_rows, base_rows,
+                   fresh_rows, V):
+    """The A tables of a V-validator set from a previous set's rows and a
+    freshly built bucket: row new_rows[i] is base row base_rows[i], row
+    fresh_rows[f] is bucket row f (the bucket may carry padding rows past
+    len(fresh_rows), never read).  Tables (*, 64, 8, 3, 8) int32, valid
+    (*,) bool, rows int64 tensors, all on one device; new_rows and
+    fresh_rows are disjoint.  Returns (tables (V, ...), valid (V,))."""
+    shape = (comb.NPOS_A, comb.NENT_A, 3, 8)
+    for name, t in (("base_tables", base_tables), ("new_tables", new_tables)):
+        if t.dtype != torch.int32 or tuple(t.shape[1:]) != shape:
+            raise ValueError(f"{name} must be (*, 64, 8, 3, 8) int32")
+    if new_rows.shape != base_rows.shape:
+        raise ValueError("new_rows and base_rows must pair up")
+    if fresh_rows.shape[0] > new_tables.shape[0]:
+        raise ValueError("more fresh rows than freshly built tables")
+    args = (base_tables, base_valid, new_tables, new_valid, new_rows, base_rows, fresh_rows)
+    devs = {t.device for t in args}
+    if len(devs) != 1:
+        raise ValueError(f"arguments on several devices: {devs}")
+    dev = base_tables.device
+    if dev.type == "cpu":
+        return assemble_churn_plain(*args, V)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    # src[v]: base row (>= 0), fresh row f as -1 - f, or no source
+    src = torch.full((V,), -(1 << 31), dtype=torch.int32, device=dev)
+    src[new_rows] = base_rows.to(torch.int32)
+    src[fresh_rows] = -1 - torch.arange(fresh_rows.shape[0], dtype=torch.int32, device=dev)
+    tables = torch.empty((V,) + shape, dtype=torch.int32, device=dev)
+    valid = torch.empty((V,), dtype=torch.bool, device=dev)
+    launch_k6(base_tables.contiguous(), base_valid.contiguous(), new_tables.contiguous(),
+              new_valid.contiguous(), src, tables, valid)
+    return tables, valid
+
+
+def launch_k6(base_tables, base_valid, new_tables, new_valid, src, tables, valid) -> None:
+    """K6 into preallocated outputs on the current stream."""
+    for t in (base_tables, new_tables, tables):
+        if t.data_ptr() % 16:
+            raise ValueError("K6 needs 16-byte aligned tables")
+    code = _build.lib("churn").k6_assemble_churn(
+        base_tables.data_ptr(), base_valid.data_ptr(), new_tables.data_ptr(),
+        new_valid.data_ptr(), src.data_ptr(), tables.data_ptr(), valid.data_ptr(),
+        src.shape[0], torch.cuda.current_stream(tables.device).cuda_stream,
+    )
+    _build.check(code, "k6_assemble_churn")
+    LAUNCHES["assemble_churn"] += 1
 
 
 _GLOBAL_CACHE = ValsetCombCache()
@@ -279,16 +444,20 @@ def device_verify(tables, valid, pubs, payload, b_tables) -> torch.Tensor:
 class CombBatchVerifier:
     """BatchVerifier (crypto/crypto.go:47-55) bound to a cached set.
 
-    add() takes pubkeys of the bound validator set, one signature per
-    key; anything else needs the uncached kernel, which this slice does
-    not have, and raises NotImplementedError.  add() only appends — all
-    assembly, hashing and transfer happen in one submit()."""
+    add() expects pubkeys of the bound validator set, one signature per
+    key.  A key outside the set, or a second signature under one key,
+    demotes the whole batch to the uncached verifier
+    (models/verifier.Ed25519BatchVerifier), which then verifies every
+    item in add() order (cometbft_tpu/models/comb_verifier.py:557-582).
+    add() only appends — all assembly, hashing and transfer happen in one
+    submit()."""
 
     def __init__(self, entry: _CacheEntry):
         self._entry = entry
         self._rows: list[int] = []
         self._row_set: set[int] = set()
         self._items: list[tuple[bytes, bytes, bytes]] = []
+        self._fallback: Ed25519BatchVerifier | None = None
         self.last_timings: dict[str, float] = {}  # ms per phase, set by verify()
 
     def __len__(self) -> int:
@@ -301,14 +470,18 @@ class CombBatchVerifier:
             # the payload's mlen field is 3 bytes; a silent wrap would
             # verify against a truncated message
             raise ValueError("message too large for batch verification")
-        row = self._entry.index.get(pub_key)
-        if row is None:
-            raise NotImplementedError(STRAUS_GAP.format(why="a key outside the cached set"))
-        if row in self._row_set:
-            raise NotImplementedError(
-                STRAUS_GAP.format(why="a second signature under one key")
-            )
         self._items.append((pub_key, msg, sig))
+        if self._fallback is not None:
+            self._fallback.add(pub_key, msg, sig)
+            return
+        row = self._entry.index.get(pub_key)
+        if row is None or row in self._row_set:
+            # the payload holds one row per validator of the set: replay
+            # everything added so far into the uncached verifier
+            self._fallback = Ed25519BatchVerifier(device=self._entry.device)
+            for item in self._items:
+                self._fallback.add(*item)
+            return
         self._row_set.add(row)
         self._rows.append(row)
 
@@ -316,6 +489,8 @@ class CombBatchVerifier:
         """Stage the payload, copy it to the card and enqueue K1 -> K2 ->
         K4 and the copy of the result back, WITHOUT waiting for the
         verdict.  Returns an opaque ticket for collect()."""
+        if self._fallback is not None:
+            return self._fallback.submit()
         n = len(self._rows)
         if n == 0:
             return ("sync", (False, []))
@@ -352,6 +527,10 @@ class CombBatchVerifier:
     def collect(self, ticket) -> tuple[bool, list[bool]]:
         """Wait for a submit() ticket and unpack (all_ok, per-signature),
         the bitmap indexed in add() order."""
+        if self._fallback is not None:
+            result = self._fallback.collect(ticket)
+            self.last_timings.update(self._fallback.last_timings)
+            return result
         kind, payload = ticket
         if kind == "sync":
             return payload

@@ -52,37 +52,6 @@ LAUNCHES = {"build_a_tables": 0, "verify_cached": 0}
 # ------------------------------------------------------------ host builders
 
 
-def _words(vals: list[int]) -> np.ndarray:
-    """Field elements (ints in [0, p)) -> (n, 8) uint32 LE words."""
-    raw = b"".join(v.to_bytes(32, "little") for v in vals)
-    return np.frombuffer(raw, dtype="<u4").reshape(-1, 8).astype(np.uint32)
-
-
-def _batch_invert(zs: list[int]) -> list[int]:
-    """Montgomery's trick: every 1/z with one modular inversion."""
-    P = ref.P
-    prefix = [1]
-    for z in zs:
-        prefix.append(prefix[-1] * z % P)
-    inv = pow(prefix[-1], P - 2, P)
-    out = [0] * len(zs)
-    for k in range(len(zs) - 1, -1, -1):
-        out[k] = inv * prefix[k] % P
-        inv = inv * zs[k] % P
-    return out
-
-
-def _niels_words(points: list[tuple]) -> np.ndarray:
-    """Extended points -> (n, 3, 8) uint32 canonical affine Niels."""
-    P = ref.P
-    inv_z = _batch_invert([p[2] for p in points])
-    vals = []
-    for (X, Y, _, _), iz in zip(points, inv_z):
-        x, y = X * iz % P, Y * iz % P
-        vals += [(y + x) % P, (y - x) % P, x * y % P * ref.D2 % P]
-    return _words(vals).reshape(-1, 3, 8)
-
-
 def _host_decompress_zip215(pk: bytes):
     """ZIP-215 decompression on host ints with exactly the kernels'
     semantics: non-canonical y accepted, x = 0 with sign 1 accepted,
@@ -127,7 +96,7 @@ def build_a_tables_host(a_enc: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
                 if e + 1 < NENT_A:
                     acc = ref.pt_add(acc, base)
             base = ref.pt_add(acc, acc)  # 16 * (16^i * (-A))
-    tables = _niels_words(points).reshape(V, NPOS_A, NENT_A, 3, 8)
+    tables = E.niels_words_host(points).reshape(V, NPOS_A, NENT_A, 3, 8)
     return tables, valid
 
 
@@ -152,7 +121,7 @@ def build_b_tables() -> np.ndarray:
                 points += row
                 for _ in range(12):
                     base = ref.pt_add(base, base)
-            _B_TABLE = _niels_words(points).reshape(NPOS_B, NENT_B, 3, 8)
+            _B_TABLE = E.niels_words_host(points).reshape(NPOS_B, NENT_B, 3, 8)
             _B_TABLE.setflags(write=False)
         return _B_TABLE
 

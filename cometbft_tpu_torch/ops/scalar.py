@@ -101,6 +101,14 @@ def nibbles(b: torch.Tensor) -> torch.Tensor:
     return torch.stack([b & 15, b >> 4], dim=-1).reshape(b.shape[0], 64).T
 
 
+def bytes_to_windows(b: torch.Tensor) -> torch.Tensor:
+    """(V, 32) uint8 LE -> (64, V) int64 4-bit windows, most significant
+    first (cometbft_tpu/ops/scalar.py:168 bytes_to_windows, and :159
+    limbs_to_windows on the same value: the port's reduce_mod_l returns
+    bytes, so one function serves both)."""
+    return nibbles(b).flip(0)
+
+
 def signed_digits_radix16(k: torch.Tensor) -> torch.Tensor:
     """(V, 32) uint8 LE scalar < 2^253 -> (64, V) digits in [-8, 7] with
     value == sum d_i 16^i (d = nibble + carry; d >= 8 borrows 16 from

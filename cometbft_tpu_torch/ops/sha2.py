@@ -17,6 +17,7 @@ live(1B) | msg(maxm).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -62,6 +63,34 @@ def _check_payload(payload: torch.Tensor, pubs: torch.Tensor) -> None:
         raise ValueError("pubs must be (V, 32) uint8")
     if pubs.device != payload.device:
         raise ValueError("payload and pubs must be on the same device")
+
+
+def pad_messages_sha512(msgs: list[bytes], max_len: int | None = None):
+    """Host: messages -> (buf (n, nb, 128) uint8, active (n,) int32) for
+    sha512_blocks (a copy of cometbft_tpu/ops/sha2.py:387): each row
+    padded in its own final block (0x80, zeros, the 128-bit big-endian
+    bit length), nb = the longest row's block count.  Rows of one length
+    are written in one block write."""
+    n = len(msgs)
+    lens = np.fromiter((len(m) for m in msgs), np.int64, n)
+    longest = int(lens.max(initial=0))
+    if max_len is not None:
+        longest = max(longest, max_len)
+    nblocks = max(1, (longest + 17 + 127) // 128)
+    buf = np.zeros((n, nblocks * 128), dtype=np.uint8)
+    for ln in np.unique(lens).tolist():
+        rows = np.flatnonzero(lens == ln)
+        if ln:
+            buf[rows, :ln] = np.frombuffer(
+                b"".join(msgs[i] for i in rows.tolist()), np.uint8
+            ).reshape(-1, ln)
+    active = (lens + 17 + 127) // 128
+    ar = np.arange(n)
+    buf[ar, lens] = 0x80
+    bits = lens * 8  # < 2^64: the top 8 bytes of the 16-byte length are 0
+    for k in range(8):
+        buf[ar, active * 128 - 1 - k] = (bits >> (8 * k)) & 0xFF
+    return buf.reshape(n, nblocks, 128), active.astype(np.int32)
 
 
 # ------------------------------------------------------------------ K1

@@ -4,7 +4,8 @@ types/validation.go), ported from cometbft_tpu/types/validation.py.
 verify_commit* assemble a batch of (pubkey, sign-bytes, signature)
 triples and hand it to the BatchVerifier seam
 (crypto/batch.create_batch_verifier), which binds an ed25519 set to its
-comb tables on the card; on batch failure the per-signature validity
+comb tables on the card or routes it to the uncached verifier (small
+sets, tables still building); on batch failure the per-signature validity
 vector assigns blame exactly like the reference (validation.go:384-399),
 and the sequential host path covers commits that do not batch
 (shouldBatchVerify, validation.go:17-21).
@@ -316,7 +317,7 @@ def _verify_commit_batch(
     device,
     comb_cache,
 ) -> None:
-    """(validation.go:265) — batch assembly, power tally, comb-kernel
+    """(validation.go:265) — batch assembly, power tally, kernel
     dispatch on ``device``, blame."""
     proposer = vals.get_proposer()
     bv = crypto_batch.create_batch_verifier(

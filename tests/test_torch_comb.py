@@ -162,17 +162,40 @@ def test_slab_reuse_ignores_stale_bytes(signed_set):
         assert per == [jref.verify(*it) for it in items]
 
 
+def _foreign_item(msg=b"m", bad=False):
+    k = _keys(1, base=200)[0]
+    return (k.pub_key().data, msg, k.sign(msg + (b"!" if bad else b"")))
+
+
 def test_foreign_and_duplicate_keys_name_the_straus_slice(signed_set):
+    """A key outside the cached set, or a second signature under one key,
+    demotes the comb batch to the uncached (Straus) verifier, which
+    answers every item in add() order: the verdicts equal the JAX
+    package's CombBatchVerifier (which demotes the same way) and the host
+    oracle."""
+    from cometbft_tpu.models import comb_verifier as jcv
+
     keys, pubs_b, entry = signed_set
-    bv = cv.CombBatchVerifier(entry)
-    bv.add(*_items(keys, pubs_b)[0])
-    with pytest.raises(NotImplementedError, match="Straus"):
-        bv.add(*_items(keys, pubs_b)[0])
-    foreign = _keys(1, base=200)[0]
-    with pytest.raises(NotImplementedError, match="Straus"):
-        bv.add(foreign.pub_key().data, b"m", foreign.sign(b"m"))
+    items = _items(keys, pubs_b, {4: "s", 6: "r"})
+    batches = {
+        # a second signature under key 0, then more members of the set
+        "duplicate": items[:3] + [items[0]] + items[3:7],
+        # foreign keys first and later, one signing a message it never saw
+        "foreign": [_foreign_item()] + items[:5] + [_foreign_item(b"m2", bad=True)] + items[5:],
+    }
+    jentry = jcv.ValsetCombCache().ensure(pubs_b)
+    for name, batch in batches.items():
+        bv, jbv = cv.CombBatchVerifier(entry), jcv.CombBatchVerifier(jentry)
+        for it in batch:
+            bv.add(*it)
+            jbv.add(*it)
+        ok, per = bv.verify()
+        expect = [jref.verify(p, m, s) for p, m, s in batch]
+        assert (ok, per) == jbv.verify(), name
+        assert per == expect and ok == all(expect) and not ok, name
+        assert set(bv.last_timings) >= {"assembly_ms", "h2d_dispatch_ms", "device_wait_ms"}
     with pytest.raises(ValueError):
-        bv.add(pubs_b[1], b"m", b"short")
+        cv.CombBatchVerifier(entry).add(pubs_b[1], b"m", b"short")
 
 
 @pytest.mark.slow

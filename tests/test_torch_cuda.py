@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain versions on the card
+"""The CUDA kernels K1-K6 against their plain versions on the card
 (marker ``cuda``: these skip where no CUDA device is present; run them
 on the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``).
 Small shapes; chip_smoke.py holds the kernels at the main path's."""
@@ -93,3 +93,65 @@ def test_k3_on_arbitrary_encodings_matches_plain(dev):
     pt, pv = comb.build_a_tables_plain(pubs)
     assert torch.equal(valid, pv) and 0 < int(valid.sum()) < 96
     assert torch.equal(tables, pt)
+
+
+def test_k5_matches_plain_and_host_oracle(dev):
+    """K5 on 200 lanes (a ragged last block): good signatures, flipped
+    messages, s >= L, undecodable R and A, random 32-byte keys and
+    small-order points; verdicts equal the plain version and the host
+    oracle."""
+    from cometbft_tpu_torch.crypto import _ref25519 as ref
+    from cometbft_tpu_torch.crypto import ed25519 as host
+    from cometbft_tpu_torch.models.verifier import stage_batch
+    from cometbft_tpu_torch.ops import ed25519 as E
+    from cometbft_tpu_torch.ops import sha2
+
+    rng = np.random.default_rng(8)
+    small = [(1).to_bytes(32, "little"), ((1 << 255) | 1).to_bytes(32, "little"),
+             (ref.P - 1).to_bytes(32, "little"), bytes(32)]
+    items = []
+    for i in range(200):
+        k = host.PrivKey.from_seed(rng.bytes(32))
+        m = rng.bytes(int(rng.integers(0, 300)))
+        pub, sig = k.pub_key().data, k.sign(m)
+        kind = i % 8
+        if kind == 1:
+            m = m + b"!"
+        elif kind == 2:
+            sig = sig[:32] + (int.from_bytes(sig[32:], "little") + ref.L).to_bytes(32, "little")
+        elif kind == 3:
+            pub = rng.bytes(32)
+        elif kind == 4:
+            sig = rng.bytes(32) + sig[32:]
+        elif kind == 5:
+            pub, sig = small[i % 4], small[(i // 8) % 4] + bytes(32)
+        items.append((pub, m, sig))
+    a, r, s, blocks, active = stage_batch(items, dev)
+    digest = sha2.sha512_blocks(blocks, active)
+    got = E.verify_digest(a, r, s, digest)
+    want = E.verify_digest_plain(a, r, s, digest)
+    assert torch.equal(got, want)
+    oracle = [ref.verify(*it) for it in items]
+    assert got[: len(items)].tolist() == oracle and 0 < sum(oracle) < len(items)
+
+
+def test_k6_matches_plain(dev):
+    """K6 against its plain version on random table words: reused rows
+    in a shuffled order, fresh rows from a padded bucket, and one row
+    that neither index names (zero and invalid)."""
+    from cometbft_tpu_torch.models import comb_verifier as cv
+
+    g = torch.Generator(device="cpu").manual_seed(9)
+    Vb, V, bucket = 40, 37, 8
+    base = torch.randint(-(1 << 31), 1 << 31, (Vb, 64, 8, 3, 8), generator=g, dtype=torch.int64)
+    fresh = torch.randint(-(1 << 31), 1 << 31, (bucket, 64, 8, 3, 8), generator=g, dtype=torch.int64)
+    base, fresh = base.to(torch.int32).to(dev), fresh.to(torch.int32).to(dev)
+    base_valid = (torch.arange(Vb, device=dev) % 3) != 0
+    fresh_valid = (torch.arange(bucket, device=dev) % 2) == 0
+    perm = torch.randperm(V, generator=g).to(dev)
+    new_rows, fresh_rows = perm[:30], perm[30:36]  # perm[36] has no source
+    base_rows = torch.randperm(Vb, generator=g)[:30].to(dev)
+    got = cv.assemble_churn(base, base_valid, fresh, fresh_valid, new_rows, base_rows, fresh_rows, V)
+    want = cv.assemble_churn_plain(base, base_valid, fresh, fresh_valid, new_rows, base_rows, fresh_rows, V)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not bool(got[1][perm[36]]) and int(got[0][perm[36]].abs().sum()) == 0

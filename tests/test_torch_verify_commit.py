@@ -104,6 +104,17 @@ def test_verify_commit_matches_jax(case, light, comb_cache):
         assert got[0] == "CommitVerificationError" and "(#3)" in got[1]
 
 
+@pytest.mark.parametrize("light", [False, True], ids=["verify_commit", "verify_commit_light"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_verify_commit_comb_route_matches_jax(case, light, comb_cache, monkeypatch):
+    """The same cases with the comb threshold lowered to the 8-validator
+    set, so the port binds the set to its comb tables (K3 -> K1/K2/K4)
+    where the default routing takes the uncached verifier (K2 -> K5)."""
+    monkeypatch.setenv("COMETBFT_TPU_COMB_MIN", "1")
+    test_verify_commit_matches_jax(case, light, comb_cache)
+    assert len(comb_cache._entries) == 1
+
+
 def test_basic_checks_match_jax(comb_cache):
     jvals, jbid, jcommit = _build(JT, jhost, J_PRECOMMIT, JTimestamp, 10)
     pvals, pbid, pcommit = _build(PT, phost, P_PRECOMMIT, PTimestamp, 10)
@@ -113,7 +124,8 @@ def test_basic_checks_match_jax(comb_cache):
         assert got[0] == expect[0] and got[1].split(":")[0] == expect[1].split(":")[0]
 
 
-def test_batch_path_builds_the_set_once():
+def test_batch_path_builds_the_set_once(monkeypatch):
+    monkeypatch.setenv("COMETBFT_TPU_COMB_MIN", "4")
     cache = cv.ValsetCombCache()
     pvals, pbid, pcommit = _build(PT, phost, P_PRECOMMIT, PTimestamp, 10)
     for _ in range(2):
@@ -132,9 +144,27 @@ def test_submit_collect_seam():
 
 
 def test_create_batch_verifier_without_pubkeys_names_the_straus_slice():
-    from cometbft_tpu_torch.crypto import batch
+    """Without pubkeys the factory returns the uncached (Straus) verifier,
+    whose per-signature verdicts equal the JAX package's factory verifier
+    and the host oracle; non-ed25519 key types are refused."""
+    from cometbft_tpu.crypto import batch as jbatch
+    from cometbft_tpu.crypto import _ref25519 as jref
 
-    with pytest.raises(NotImplementedError, match="Straus"):
-        batch.create_batch_verifier("ed25519", device="cpu")
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.models.verifier import Ed25519BatchVerifier
+
+    keys = [phost.PrivKey.from_seed(bytes([i + 31]) * 32) for i in range(5)]
+    items = [(k.pub_key().data, b"light-%d" % i, k.sign(b"light-%d" % i)) for i, k in enumerate(keys)]
+    items[1] = (items[1][0], items[1][1] + b"!", items[1][2])
+    items[3] = (items[3][0], items[3][1], items[3][2][:32] + bytes(32))
+    bv = batch.create_batch_verifier("ed25519", device="cpu")
+    assert isinstance(bv, Ed25519BatchVerifier)
+    jbv = jbatch.create_batch_verifier("ed25519")
+    for it in items:
+        bv.add(*it)
+        jbv.add(*it)
+    ok, per = bv.verify()
+    assert (ok, per) == jbv.verify()
+    assert per == [jref.verify(*it) for it in items] == [True, False, True, False, True]
     with pytest.raises(ValueError):
         batch.create_batch_verifier("secp256k1", pubkeys=[b"x" * 32], device="cpu")
