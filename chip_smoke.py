@@ -2,9 +2,11 @@
 ed25519 VerifyCommit over a 10,000-validator commit through the
 comb-cached kernels, the uncached (Straus) verifier at the same width, a
 validator-set change with its background churn build, a light-client
-trusting check on 150 validators, and the comb verifier's demotion — on
-one NVIDIA card, holds each kernel against its plain PyTorch version,
-and prints the card's numbers.
+trusting check on 150 validators, the comb verifier's demotion, the
+light client's header checks at 10,000 validators (validator-set hash on
+the Merkle kernels, then the commit), and batched Merkle proof serving
+over a 16,384-leaf tree — on one NVIDIA card, holds each kernel against
+its plain PyTorch version, and prints the card's numbers.
 
     python3 chip_smoke.py
 
@@ -15,7 +17,9 @@ it and read just after it.
      every kernel source with its -Xptxas -v register and spill counts;
   2. the comb path: the set's table build (a synchronous ensure, as
      bench.py forces), verify_commit on a good commit and on a commit
-     with planted faults (blame on the first planted index);
+     with planted faults (blame on the first planted index).  The commit
+     is that of a real Header whose validators_hash and
+     next_validators_hash are the set's hash (K7 + K8 on the card);
   3. K1-K4 against their plain versions at the comb path's shapes
      (byte-exact), the planted commit's bitmap against the plain version
      on every row and the host oracle on the planted rows plus 256
@@ -36,7 +40,19 @@ it and read just after it.
      K2 -> K5 at 256 lanes, p50, K5's time at 256 lanes;
   8. demotion: comb batches with a foreign key and with a duplicate key
      against the host oracle;
-  9. one JSON line with every kernel, then the contract line.
+  9. the light client at 10,000 validators, tables warm and the set's
+     hash memo dropped before each call: ValidatorSet.hash (K7 once, K8
+     once per level) against hashlib, verify_adjacent and
+     verify_non_adjacent (trust 1/3; then the comb kernels), a header
+     with a flipped validators_hash refused; p50s;
+ 10. proof serving over 16,384 leaves of 64 bytes, every leaf queried:
+     ProofProver (K7, K8 per level, one K9) and device_multiproof, every
+     proof equal to proofs_from_byte_slices's byte for byte; p50s and
+     the multiproof's dedup factor;
+ 11. K7-K9 against their plain versions (byte-exact) — K7 on rows of 1-3
+     active blocks with stale bytes, K8 on every level of both trees, K9
+     with -1 coordinates — and their times, K9 beside index_select;
+ 12. one JSON line with every kernel, then the contract line.
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
@@ -57,6 +73,10 @@ V_MAIN = 10_000  # validators on the main path
 V_K3_PARITY = 1_024  # K3 against its plain version
 N_CHURN = 100  # validators replaced in the set change (1%)
 V_LIGHT = 150  # the light client's trusted set
+N_LEAVES = 16_384  # proof tree: a full block's txs (4 MiB of 256-byte txs)
+LEAF_BYTES = 64  # bench.py's proof-serving leaves
+NS = 1_000_000_000
+TRUSTING_PERIOD_NS = 14 * 24 * 3600 * NS
 MAXM = 128  # payload message bucket of the 125- and 126-byte vote sign-bytes
 CHAIN_ID = "cometbft-tpu-torch-smoke"
 SEED = 20261017
@@ -80,6 +100,9 @@ TIMING = {
     "verify_batch": (10, 2, 1, 0),  # at 16,384 lanes (the plain version once, cold)
     "verify_batch_256": (20, 2, 2, 1),  # at the light client's 256 lanes
     "assemble_churn": (20, 2, 2, 1),
+    "sha256_blocks": (50, 2, 5, 1),  # at the proof tree's 16,384 leaves
+    "merkle_level": (20, 2, 2, 1),  # one tree: all 14 levels of the proof tree
+    "merkle_gather": (50, 2, 5, 1),  # the proofs' 16,384 x 15 coordinates
 }
 
 # The card's peaks (NVIDIA H100 SXM data sheet, at a 700 W power limit):
@@ -100,6 +123,9 @@ FIELD_MULS_PER_VERIFY = 270 + 86 * 7 + 9 + 3 * 8  # K4, per lane
 FIELD_MULS_PER_STRAUS = 2 * 270 + (8 + 8 + 6 * 8) + 64 * (4 * 8 + 8 + 7) + 9 + 3 * 8
 A_ROW_BYTES = 64 * 8 * 3 * 8 * 4  # one validator's comb table
 OPS_PER_SCALAR_REDUCE = (81 + 45) * 4  # K4 Barrett word products, per lane
+# SHA-256, per block, counted from csrc/sha256.cuh: 64 rounds of 26 word
+# operations, 48 schedule words of 13, 8 state adds
+OPS_PER_SHA256_BLOCK = 64 * 26 + 48 * 13 + 8
 
 
 def log(*args):
@@ -143,13 +169,17 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from cometbft_tpu_torch import _build
+    from cometbft_tpu_torch import light
     from cometbft_tpu_torch.crypto import _ref25519 as ref
     from cometbft_tpu_torch.crypto import ed25519 as host
+    from cometbft_tpu_torch.crypto import merkle as cmerkle
     from cometbft_tpu_torch.models import comb_verifier as cv
+    from cometbft_tpu_torch.models import proof_server
     from cometbft_tpu_torch.models.verifier import (
         CpuEd25519BatchVerifier, Ed25519BatchVerifier, stage_batch,
     )
     from cometbft_tpu_torch.ops import comb, sha2
+    from cometbft_tpu_torch.ops import merkle as Mk
     from cometbft_tpu_torch.ops import ed25519 as E
     from cometbft_tpu_torch import types as T
     from cometbft_tpu_torch.types import validation
@@ -159,7 +189,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
     t_start = time.perf_counter()
-    counters = (sha2.LAUNCHES, comb.LAUNCHES, E.LAUNCHES, cv.LAUNCHES)
+    counters = (sha2.LAUNCHES, comb.LAUNCHES, E.LAUNCHES, cv.LAUNCHES, Mk.LAUNCHES)
     path_launches = {}  # path -> launches read just after it
 
     def zero_counts():
@@ -192,8 +222,22 @@ def main() -> int:
     keys = [host.PrivKey.from_seed(s) for s in seeds]
     vals = T.ValidatorSet([T.Validator(k.pub_key(), 10) for k in keys])
     by_addr = {k.pub_key().address(): k for k in keys}
-    bid = T.BlockID(hash=rng.bytes(32), part_set_header=T.PartSetHeader(total=3, hash=rng.bytes(32)))
     height = 1_000_000
+    vals_hash = vals.hash(device=dev)  # K7 + K8 on the card
+
+    def header_at(h, seconds, next_hash=vals_hash):
+        return T.Header(
+            chain_id=CHAIN_ID, height=h, time=Timestamp(seconds=seconds, nanos=0),
+            last_block_id=T.BlockID(hash=rng.bytes(32), part_set_header=T.PartSetHeader(1, rng.bytes(32))),
+            last_commit_hash=rng.bytes(32), data_hash=rng.bytes(32), validators_hash=vals_hash,
+            next_validators_hash=next_hash, consensus_hash=rng.bytes(32), app_hash=rng.bytes(32),
+            last_results_hash=rng.bytes(32), evidence_hash=rng.bytes(32),
+            proposer_address=vals.get_proposer().address,
+        )
+
+    # the block's header: its hash is what the commit signs
+    hdr = header_at(height, TS_SECONDS - 1)
+    bid = T.BlockID(hash=hdr.hash(), part_set_header=T.PartSetHeader(total=3, hash=rng.bytes(32)))
     nanos = rng.integers(0, 1_000_000_000, size=V_MAIN)
     sigs = []
     for i, v in enumerate(vals.validators):
@@ -681,7 +725,196 @@ def main() -> int:
     log(f"[8] demotion: a foreign key and a duplicate key each demote a comb batch to the "
         f"uncached verifier; verdicts == host oracle; launches {c_dem}")
 
-    # ---------------------------------------------------- 9. the record
+    # ---------------------------------------------------- 9. light client at 10,000
+    # The trusted headers are at height - 1 (adjacent) and height - 10
+    # (skipping, trusted set = the same 10,000); the untrusted one is the
+    # block whose commit phase 2 verified.
+    root_host = cmerkle._root_from_leaf_hashes_host(
+        [cmerkle.leaf_hash(v.bytes()) for v in vals.validators])
+    require(vals_hash == root_host, "the set's hash on the card != hashlib's")
+    trusted_sh = T.SignedHeader(header_at(height - 1, TS_SECONDS - 7), good)
+    far_sh = T.SignedHeader(header_at(height - 10, TS_SECONDS - 70), good)
+    new_sh = T.SignedHeader(hdr, good)
+    now_ns = (TS_SECONDS + 5) * NS
+    cache.ensure(vals.pub_keys_bytes(), device=dev)  # tables warm
+    depth = len(Mk.level_sizes(V_MAIN))
+    light_walls, light_counts = {}, {}
+    for name, call in (
+        ("light_adjacent", lambda: light.verify_adjacent(
+            trusted_sh, new_sh, vals, TRUSTING_PERIOD_NS, now_ns, device="cuda", comb_cache=cache)),
+        ("light_non_adjacent", lambda: light.verify_non_adjacent(
+            far_sh, vals, new_sh, vals, TRUSTING_PERIOD_NS, now_ns, trust_level=Fraction(1, 3),
+            device="cuda", comb_cache=cache)),
+        ("valset_hash", lambda: vals.hash(device="cuda")),
+    ):
+        walls_ = []
+        zero_counts()
+        for _ in range(12):
+            vals._hash = None  # the memo dropped: every call hashes the set
+            t0 = time.perf_counter()
+            call()
+            walls_.append((time.perf_counter() - t0) * 1e3)
+        light_counts[name] = c_ = read_counts(name)
+        light_walls[name] = walls_[2:]
+        require(c_["sha256_blocks"] == 12 and c_["merkle_level"] == 12 * depth
+                and c_["merkle_gather"] == 0, f"{name}: {c_}")
+        if name != "valset_hash":
+            require(c_["verify_cached"] >= 12 and c_["verify_batch"] == 0
+                    and c_["build_a_tables"] == 0, f"{name} did not take the warm comb path: {c_}")
+        require(vals.hash(device="cuda") == root_host, f"{name}: the set's hash moved")
+    p50_light = {k: float(np.median(w)) for k, w in light_walls.items()}
+    bad_hdr = T.Header(**{f: getattr(hdr, f) for f in T.Header.FIELDS})
+    bad_hdr.validators_hash = bytes([hdr.validators_hash[0] ^ 1]) + hdr.validators_hash[1:]
+    try:
+        light.verify_adjacent(trusted_sh, T.SignedHeader(bad_hdr, good), vals, TRUSTING_PERIOD_NS,
+                              now_ns, device="cuda", comb_cache=cache)
+    except light.ErrInvalidHeader as e:
+        refused = str(e)
+    else:
+        raise AssertionError("a header with a flipped validators_hash verified")
+    # the changed set of phase 6 supplied for this header: refused on the hashes
+    try:
+        light.verify_adjacent(trusted_sh, new_sh, vals2, TRUSTING_PERIOD_NS, now_ns,
+                              device="cuda", comb_cache=cache)
+    except light.ErrInvalidHeader as e:
+        refused_set = str(e)
+    else:
+        raise AssertionError("the header verified against another validator set")
+    require(refused_set.startswith("header validators hash"), f"refusal: {refused_set}")
+    log(f"[9] light client at {V_MAIN} validators: the set's hash == hashlib's "
+        f"({root_host.hex()[:16]}...); p50 (ms) over 10 calls after 2, hash memo dropped before "
+        f"each: " + json.dumps({k: round(v, 3) for k, v in p50_light.items()}))
+    log(f"[9] launches: " + json.dumps(light_counts))
+    log(f"[9] flipped validators_hash refused: ErrInvalidHeader({refused[:70]}...); the "
+        f"changed set of phase 6 refused: ErrInvalidHeader({refused_set[:40]}...)")
+
+    # ---------------------------------------------------- 10. proof serving
+    rng_p = np.random.default_rng(SEED + 3)
+    leaf_buf = rng_p.bytes(N_LEAVES * LEAF_BYTES)
+    leaves = [leaf_buf[i * LEAF_BYTES : (i + 1) * LEAF_BYTES] for i in range(N_LEAVES)]
+    t0 = time.perf_counter()
+    host_root, host_proofs = cmerkle.proofs_from_byte_slices(leaves)
+    host_proofs_ms = (time.perf_counter() - t0) * 1e3
+    tree = proof_server.register_tree(leaves)
+    queries = [proof_server.encode_query(tree, i) for i in range(N_LEAVES)]
+    proof_walls, multi_walls = [], []
+    zero_counts()
+    for _ in range(12):
+        prover = proof_server.ProofProver(device=dev)
+        for q in queries:
+            prover.add(*q)
+        t0 = time.perf_counter()
+        ok_p, rows_p = prover.verify()
+        proof_walls.append((time.perf_counter() - t0) * 1e3)
+    c_proofs = read_counts("proofs")
+    require(ok_p and rows_p == host_proofs, "served proofs != proofs_from_byte_slices")
+    depth_p = len(Mk.level_sizes(N_LEAVES))
+    require(c_proofs["sha256_blocks"] == 12 and c_proofs["merkle_level"] == 12 * depth_p
+            and c_proofs["merkle_gather"] == 12, f"proof launches {c_proofs}")
+    zero_counts()
+    for _ in range(12):
+        t0 = time.perf_counter()
+        root_m, proofs_m, dedup = cmerkle.device_multiproof(leaves, range(N_LEAVES), device=dev)
+        multi_walls.append((time.perf_counter() - t0) * 1e3)
+    c_multi = read_counts("multiproof")
+    require(root_m == host_root and proofs_m == host_proofs, "multiproof != proofs_from_byte_slices")
+    require(c_multi["sha256_blocks"] == 12 and c_multi["merkle_level"] == 12 * depth_p
+            and c_multi["merkle_gather"] == 12, f"multiproof launches {c_multi}")
+    p50_proofs = float(np.median(proof_walls[2:]))
+    p50_multi = float(np.median(multi_walls[2:]))
+    log(f"[10] proof serving, {N_LEAVES} leaves of {LEAF_BYTES} B, every leaf queried: all proofs "
+        f"== proofs_from_byte_slices (host {host_proofs_ms:.1f} ms); ProofProver.verify p50 "
+        f"{p50_proofs:.2f} ms, device_multiproof p50 {p50_multi:.2f} ms (dedup {dedup:.4f}); "
+        f"launches {json.dumps(c_proofs)} / {json.dumps(c_multi)}")
+
+    # ---------------------------------------------------- 11. K7-K9 parity, times
+    # K7 on rows of 1-3 active blocks with stale bytes past each row's end
+    lens7 = rng_p.integers(0, 3 * 64 - 9 + 1, size=N_LEAVES)
+    blk7, act7 = sha2.pad_messages_sha256([rng_p.bytes(int(n)) for n in lens7], max_len=3 * 64 - 9)
+    blk7 = blk7.copy()
+    stale = rng_p.integers(0, 256, size=blk7.shape, dtype=np.uint8)
+    past = np.arange(3)[None, :] >= act7[:, None]
+    blk7[past] = stale[past]
+    b7, a7 = torch.from_numpy(blk7).to(dev), torch.from_numpy(act7).to(dev)
+    d7 = sha2.sha256_blocks(b7, a7)
+    p7 = sha2.sha256_blocks_plain(b7, a7)
+    torch.cuda.synchronize()
+    require(torch.equal(d7, p7), "K7 != plain")
+    results["sha256_blocks"] = max_abs_err(d7, p7)
+    # K8 on every level of both trees; K9 with -1 coordinates
+    lvl_checked = 0
+    stage_v = Mk.stage_leaves([v.bytes() for v in vals.validators], dev)
+    stage_p = Mk.stage_leaves(leaves, dev)
+    k8_err = 0
+    for blocks_, active_ in (stage_v[:2], stage_p[:2]):
+        n_ = blocks_.shape[0]
+        flat_ = Mk.all_levels(blocks_, active_)
+        offs_ = Mk.level_offsets(n_)
+        for lvl, sz in enumerate(Mk.level_sizes(n_)):
+            want_ = flat_.clone()
+            want_[offs_[lvl + 1] : offs_[lvl + 1] + (sz + 1) // 2] = 0
+            Mk.merkle_level_plain(want_, offs_[lvl], sz, offs_[lvl + 1])
+            k8_err = max(k8_err, max_abs_err(flat_, want_))
+            require(torch.equal(flat_, want_), f"K8 != plain at level {lvl} of {n_} leaves")
+            lvl_checked += 1
+    results["merkle_level"] = k8_err
+    odd = [sz for sz in Mk.level_sizes(V_MAIN) if sz % 2]
+    flat_p = Mk.all_levels(*stage_p[:2])
+    require(bytes(flat_p[-1].cpu().numpy()) == host_root, "proof tree root != host")
+    coord9_np = rng_p.integers(0, flat_p.shape[0], size=N_LEAVES, dtype=np.int32)
+    coord9_np[::97] = -1  # rows with no aunt
+    coord9 = torch.from_numpy(coord9_np).to(dev)
+    g9 = Mk.merkle_gather(flat_p, coord9)
+    q9 = Mk.merkle_gather_plain(flat_p, coord9)
+    torch.cuda.synchronize()
+    require(torch.equal(g9, q9), "K9 != plain")
+    n_missing = int((coord9 < 0).sum())
+    pc = torch.from_numpy(Mk.proof_coords(N_LEAVES, range(N_LEAVES),
+                                          cmerkle._plan_array(N_LEAVES, range(N_LEAVES)))).to(dev)
+    pc_flat = pc.reshape(-1)
+    require(bool((pc_flat >= 0).all()), "a proof coordinate of a power-of-two tree is -1")
+    g9p = Mk.merkle_gather(flat_p, pc_flat)
+    lib9 = torch.index_select(flat_p, 0, pc_flat)
+    q9p = Mk.merkle_gather_plain(flat_p, pc_flat)
+    torch.cuda.synchronize()
+    require(torch.equal(g9p, q9p) and torch.equal(g9p, lib9), "K9 != plain / index_select")
+    results["merkle_gather"] = max(max_abs_err(g9, q9), max_abs_err(g9p, q9p))
+    log(f"[11] K7 == plain on {N_LEAVES} rows of 1-3 active blocks (stale bytes past each row); "
+        f"K8 == plain on all {lvl_checked} levels of the {V_MAIN}- and {N_LEAVES}-leaf trees "
+        f"(odd levels of the first: {odd}); K9 == plain with {n_missing} coordinates of -1, and "
+        f"== plain and index_select on the proofs' {pc_flat.shape[0]} coordinates")
+    # times at the proof path's shapes
+    blocks_p, active_p = stage_p[:2]
+    offs_p, sizes_p = Mk.level_offsets(N_LEAVES), Mk.level_sizes(N_LEAVES)
+    flat_t = torch.empty_like(flat_p)
+    sha2.launch_k7(blocks_p, active_p, flat_t)
+    sum_active7 = int(active_p.sum())
+
+    def k8_tree():
+        for lvl, sz in enumerate(sizes_p):
+            Mk.merkle_level(flat_t, offs_p[lvl], sz, offs_p[lvl + 1])
+
+    def k8_tree_plain():
+        for lvl, sz in enumerate(sizes_p):
+            Mk.merkle_level_plain(flat_t, offs_p[lvl], sz, offs_p[lvl + 1])
+
+    out9 = torch.empty((pc_flat.shape[0], 32), dtype=torch.uint8, device=dev)
+    timed7 = torch.empty((N_LEAVES, 32), dtype=torch.uint8, device=dev)
+    for name, kern, plain in (
+        ("sha256_blocks", lambda: sha2.launch_k7(blocks_p, active_p, timed7),
+         lambda: sha2.sha256_blocks_plain(blocks_p, active_p)),
+        ("merkle_level", k8_tree, k8_tree_plain),
+        ("merkle_gather", lambda: Mk.launch_k9(flat_p, pc_flat, out9),
+         lambda: Mk.merkle_gather_plain(flat_p, pc_flat)),
+    ):
+        it, wu, pit, pwu = TIMING[name]
+        t[name] = (cuda_ms(kern, it, wu), cuda_ms(plain, pit, pwu))
+    require(torch.equal(flat_t, flat_p), "the timed tree != the proof tree")
+    it, wu, _, _ = TIMING["merkle_gather"]
+    lib9_ms = cuda_ms(lambda: torch.index_select(flat_p, 0, pc_flat, out=out9), it, wu)
+    k8_top_ms = cuda_ms(lambda: Mk.merkle_level(flat_t, 0, N_LEAVES, offs_p[1]), 20, 2)
+
+    # ---------------------------------------------------- 12. the record
     # bounds from this run's shapes and data
     width = good_payload.shape[1]
     k5_ops = FIELD_MULS_PER_STRAUS * OPS_PER_FIELD_MUL + OPS_PER_SCALAR_REDUCE
@@ -699,6 +932,10 @@ def main() -> int:
         "verify_batch": ("operations", lanes * k5_ops / INT32_OPS_PER_S),
         "verify_batch_256": ("operations", 256 * k5_ops / INT32_OPS_PER_S),
         "assemble_churn": ("bytes", (2 * V_MAIN * A_ROW_BYTES + V_MAIN * 6) / HBM_BYTES_PER_S),
+        "sha256_blocks": ("operations", sum_active7 * OPS_PER_SHA256_BLOCK / INT32_OPS_PER_S),
+        "merkle_level": (
+            "operations", sum(sz // 2 for sz in sizes_p) * 2 * OPS_PER_SHA256_BLOCK / INT32_OPS_PER_S),
+        "merkle_gather": ("bytes", pc_flat.shape[0] * (4 + 32 + 32) / HBM_BYTES_PER_S),
     }
     # the other side of each bound, logged for the record
     other = {
@@ -709,6 +946,9 @@ def main() -> int:
         "verify_batch": lanes * (3 * 32 + 64 + 1) / HBM_BYTES_PER_S,
         "verify_batch_256": 256 * (3 * 32 + 64 + 1) / HBM_BYTES_PER_S,
         "assemble_churn": 0.0,
+        "sha256_blocks": (blocks_p.numel() + N_LEAVES * 4 + N_LEAVES * 32) / HBM_BYTES_PER_S,
+        "merkle_level": sum(sz * 32 + (sz + 1) // 2 * 32 for sz in sizes_p) / HBM_BYTES_PER_S,
+        "merkle_gather": 0.0,
     }
     meta = {
         "parse_verify_payload": ("K1", "cometbft_tpu_torch/csrc/sha2.cu",
@@ -725,10 +965,19 @@ def main() -> int:
                          "cometbft_tpu/ops/ed25519.py:380", ["ed25519_verify_batch"]),
         "assemble_churn": ("K6", "cometbft_tpu_torch/csrc/churn.cu",
                            "cometbft_tpu/models/comb_verifier.py:391", ["comb_assemble_churn"]),
+        "sha256_blocks": ("K7", "cometbft_tpu_torch/csrc/merkle.cu",
+                          "cometbft_tpu/ops/sha2.py:81", ["sha256_blocks"]),
+        "merkle_level": ("K8", "cometbft_tpu_torch/csrc/merkle.cu",
+                         "cometbft_tpu/ops/merkle.py:47",
+                         ["merkle_root_from_leaves", "merkle_proofs_from_leaves",
+                          "merkle_multiproof_from_leaves"]),
+        "merkle_gather": ("K9", "cometbft_tpu_torch/csrc/merkle.cu",
+                          "cometbft_tpu/ops/merkle.py:117",
+                          ["merkle_proofs_from_leaves", "merkle_multiproof_from_leaves"]),
     }
-    library = {"assemble_churn": lib6_ms}
+    library = {"assemble_churn": lib6_ms, "merkle_gather": lib9_ms}
     total_launches = {k: sum(p[k] for p in path_launches.values()) for k in read_counts()}
-    log(f"[9] launches per path (each read just after the path): {json.dumps(path_launches)}")
+    log(f"[12] launches per path (each read just after the path): {json.dumps(path_launches)}")
     kernels = []
     for name in meta:
         tag, src_, rep, rows_ = meta[name]
@@ -745,24 +994,29 @@ def main() -> int:
             rec.update(lanes=lanes, ms_256=t["verify_batch_256"][0],
                        plain_ms_256=t["verify_batch_256"][1],
                        bound_ms_256=bound["verify_batch_256"][1] * 1e3)
+        if name == "merkle_level":  # ms, plain_ms and bound_ms are for one whole tree
+            rec.update(launches_per_tree=len(sizes_p), leaves=N_LEAVES, ms_top_level=k8_top_ms)
         kernels.append(rec)
         for key in (name, "verify_batch_256") if name == "verify_batch" else (name,):
             it, wu, pit, pwu = TIMING[key]
             ms, plain_ms = t[key]
             by, secs = bound[key]
             lib_note = f"; library {library[name]:.4f} ms" if name in library else ""
-            log(f"[9] {tag} {key}: {ms:.4f} ms over {it} launches after {wu} warm-up "
+            log(f"[12] {tag} {key}: {ms:.4f} ms over {it} launches after {wu} warm-up "
                 f"(plain {plain_ms:.2f} ms over {pit} after {pwu}); bound {secs * 1e3:.4f} ms by "
                 f"{by}, other side {other[key] * 1e3:.4f} ms{lib_note}; launches over the paths "
                 f"{total_launches[name]}")
     # a verify_commit launches K1, K2 and K4 once each
     device_ms = sum(t[n][0] for n in ("parse_verify_payload", "sha512_blocks", "verify_cached"))
-    log(f"[9] total {time.perf_counter() - t_start:.1f} s; verify_commit p50 {p50:.3f} ms, of which "
+    log(f"[12] total {time.perf_counter() - t_start:.1f} s; verify_commit p50 {p50:.3f} ms, of which "
         f"kernels {device_ms:.3f} ms ({100 * device_ms / p50:.2f}% device busy); table build "
         f"{cold_build_ms:.1f} ms cold, {warm_build_ms:.1f} ms warm, churn {churn_ms:.1f} ms "
         f"beside a verify_commit and {churn_solo_ms:.1f} ms alone, full build of the changed set "
         f"{full_ms:.1f} ms; uncached p50 {p50_u:.2f} ms; "
-        f"light-client p50 {p50_l:.2f} ms")
+        f"light-client p50 {p50_l:.2f} ms; at {V_MAIN} validators verify_adjacent p50 "
+        f"{p50_light['light_adjacent']:.2f} ms, verify_non_adjacent {p50_light['light_non_adjacent']:.2f}, "
+        f"ValidatorSet.hash {p50_light['valset_hash']:.2f}; {N_LEAVES} proofs p50 {p50_proofs:.2f} ms, "
+        f"multiproof {p50_multi:.2f} ms")
     log(smi)
     log(json.dumps({"kernels": kernels, "verify_commit_p50_ms": p50,
                     "verify_phases_p50_ms": phase_p50, "table_build_cold_ms": cold_build_ms,
@@ -771,7 +1025,10 @@ def main() -> int:
                     "uncached_phases_p50_ms": phase_p50_u,
                     "set_change_first_call_ms": change_first_ms, "churn_build_ms": churn_ms,
                     "churn_build_solo_ms": churn_solo_ms, "k3_bucket_ms": k3_bucket_ms,
-                    "full_build_changed_set_ms": full_ms, "light_trusting_p50_ms": p50_l}))
+                    "full_build_changed_set_ms": full_ms, "light_trusting_p50_ms": p50_l,
+                    "light_10k_p50_ms": p50_light, "proofs_16k_p50_ms": p50_proofs,
+                    "multiproof_16k_p50_ms": p50_multi, "multiproof_dedup": dedup,
+                    "host_proofs_16k_ms": host_proofs_ms}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -53,6 +53,14 @@ SIGNATURES = {
         # base, base_valid, fresh, fresh_valid, src, out, valid, V, stream
         "k6_assemble_churn": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
     },
+    "merkle": {
+        # blocks, active, digest, n, nblocks, stream
+        "k7_sha256_blocks": [_P, _P, _P, _I, _I, _P],
+        # flat, in_off, n, out_off, stream
+        "k8_merkle_level": [_P, _I, _I, _I, _P],
+        # flat, coord, out, k, nnodes, stream
+        "k9_merkle_gather": [_P, _P, _P, _I, _I, _P],
+    },
 }
 
 

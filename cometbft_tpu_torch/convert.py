@@ -1,5 +1,10 @@
 """State carried across from the JAX package, and back to canonical bytes.
 
+Chain state (validator sets, signed headers) comes across from plain
+values — bytes, ints and tuples read off the JAX objects by the caller —
+so that both packages are fed the same chain without the port importing
+the JAX package.  Merkle leaves need nothing: both take lists of bytes.
+
 The JAX package keeps comb tables as (64, 9, 3, 22, V) int32 frozen
 12-bit limbs (entry 0 is the identity), the B table as (22, 66, 4096)
 float32 limbs for its MXU one-hot select, and the Straus B window as
@@ -15,8 +20,14 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .crypto import ed25519
 from .models.comb_verifier import _CacheEntry
 from .ops import comb
+from .types import block as B
+from .types.light_block import SignedHeader
+from .types.validators import Validator, ValidatorSet
+from .wire.canonical import Timestamp
+from .wire.types import Consensus
 
 _JAX_LIMBS, _JAX_BITS = 22, 12
 
@@ -95,3 +106,52 @@ def tables_from_jax(tables, valid, pubs, device="cuda", b_tables=None) -> _Cache
         comb.b_tables(dev) if b_tables is None else b_tables,
         index,
     )
+
+
+# ------------------------------------------------------------ chain state
+
+
+def validator_set(entries) -> ValidatorSet:
+    """[(ed25519 pubkey bytes, voting power), ...] -> the port's
+    ValidatorSet (sorted as the reference sorts it)."""
+    return ValidatorSet([Validator(ed25519.PubKey(bytes(pk)), int(p)) for pk, p in entries])
+
+
+def block_id(fields) -> B.BlockID:
+    """(hash, part-set total, part-set hash) -> BlockID."""
+    h, total, psh = fields
+    return B.BlockID(hash=bytes(h), part_set_header=B.PartSetHeader(int(total), bytes(psh)))
+
+
+def header(fields: dict) -> B.Header:
+    """A header's fields as plain values -> Header.  ``version`` is
+    (block, app), ``time`` (seconds, nanos), ``last_block_id`` as for
+    block_id(); the other fields are str, int or bytes, under the names
+    of Header.FIELDS."""
+    f = dict(fields)
+    blk, app = f.pop("version")
+    sec, ns = f.pop("time")
+    return B.Header(
+        version=Consensus(block=int(blk), app=int(app)),
+        time=Timestamp(seconds=int(sec), nanos=int(ns)),
+        last_block_id=block_id(f.pop("last_block_id")),
+        **f,
+    )
+
+
+def commit(height: int, round_: int, bid, sigs) -> B.Commit:
+    """A commit from plain values: ``bid`` as for block_id(), ``sigs`` a
+    list of (flag, validator address, (seconds, nanos), signature)."""
+    return B.Commit(
+        height=int(height), round=int(round_), block_id=block_id(bid),
+        signatures=[
+            B.CommitSig(int(flag), bytes(addr), Timestamp(seconds=int(t[0]), nanos=int(t[1])), bytes(sig))
+            for flag, addr, t, sig in sigs
+        ],
+    )
+
+
+def signed_header(header_fields: dict, commit_fields) -> SignedHeader:
+    """header() and commit() of the given values -> SignedHeader;
+    ``commit_fields`` is (height, round, bid, sigs)."""
+    return SignedHeader(header(header_fields), commit(*commit_fields))

@@ -1,0 +1,240 @@
+"""Light-client verification math (reference: light/verifier.go), ported
+from cometbft_tpu/light/verifier.py.
+
+verify_adjacent / verify_non_adjacent / verify sit on the commit
+verification family (types/validation.py), which runs the signatures on
+the card, and on ValidatorSet.hash, whose kernel route (K7, one K8 per
+level) takes sets of 512 validators and more.  The two passes of a
+non-adjacent check (1/3 trusting over the old set, then 2/3 over the new)
+share one SignatureCache, so no signature is verified twice
+(verifier.go:57,72).
+
+Every entry point that verifies signatures takes ``device`` (default
+``"cuda"``; ``"cpu"`` runs the kernels' plain versions) and
+``comb_cache``, and passes both on.  The JAX package submits these
+commits to its verify service at background priority; the port has no
+verify service, so the verdicts are the same and the priority is gone.
+"""
+
+from __future__ import annotations
+
+from fractions import Fraction
+
+from ..types.validation import (
+    NotEnoughVotingPowerError,
+    SignatureCache,
+    verify_commit_light,
+    verify_commit_light_trusting,
+)
+
+DEFAULT_TRUST_LEVEL = Fraction(1, 3)
+DEFAULT_MAX_CLOCK_DRIFT_NS = 10 * 1_000_000_000  # client.go:38
+
+
+class LightClientError(Exception):
+    pass
+
+
+class ErrOldHeaderExpired(LightClientError):
+    def __init__(self, expired_at_ns: int, now_ns: int):
+        super().__init__(
+            f"old header expired at {expired_at_ns} (now {now_ns}): outside "
+            "of trusting period"
+        )
+
+
+class ErrInvalidHeader(LightClientError):
+    pass
+
+
+class ErrNewValSetCantBeTrusted(LightClientError):
+    """< trustLevel of the trusted set signed the new header — bisect."""
+
+
+class ErrInvalidTrustLevel(LightClientError):
+    pass
+
+
+def validate_trust_level(lvl: Fraction) -> None:
+    """[1/3, 1] (verifier.go:160)."""
+    if (
+        lvl.denominator == 0
+        or lvl.numerator * 3 < lvl.denominator
+        or lvl.numerator > lvl.denominator
+    ):
+        raise ErrInvalidTrustLevel(f"trust level {lvl} not in [1/3, 1]")
+
+
+def header_expired(signed_header, trusting_period_ns: int, now_ns: int) -> bool:
+    """verifier.go:176."""
+    return signed_header.header.time.unix_ns() + trusting_period_ns <= now_ns
+
+
+def _verify_new_header_and_vals(
+    untrusted_sh, untrusted_vals, trusted_sh, now_ns: int, max_clock_drift_ns: int, device
+) -> None:
+    """verifier.go:135."""
+    try:
+        untrusted_sh.validate_basic(trusted_sh.header.chain_id)
+    except Exception as e:  # noqa: BLE001
+        raise ErrInvalidHeader(f"header validate basic: {e}") from e
+    if untrusted_sh.header.height <= trusted_sh.header.height:
+        raise ErrInvalidHeader(
+            f"header height {untrusted_sh.header.height} not greater than "
+            f"trusted {trusted_sh.header.height}"
+        )
+    if untrusted_sh.header.time.unix_ns() <= trusted_sh.header.time.unix_ns():
+        raise ErrInvalidHeader("header time not monotonically increasing")
+    if untrusted_sh.header.time.unix_ns() >= now_ns + max_clock_drift_ns:
+        raise ErrInvalidHeader(
+            f"new header time {untrusted_sh.header.time} exceeds max clock "
+            f"drift past now"
+        )
+    vals_hash = untrusted_vals.hash(device)
+    if untrusted_sh.header.validators_hash != vals_hash:
+        raise ErrInvalidHeader(
+            f"header validators hash {untrusted_sh.header.validators_hash.hex()} "
+            f"does not match supplied set {vals_hash.hex()}"
+        )
+
+
+def verify_adjacent(
+    trusted_sh,
+    untrusted_sh,
+    untrusted_vals,
+    trusting_period_ns: int,
+    now_ns: int,
+    max_clock_drift_ns: int = DEFAULT_MAX_CLOCK_DRIFT_NS,
+    *,
+    device="cuda",
+    comb_cache=None,
+) -> None:
+    """verifier.go:92 — next-vals linkage + 2/3 of the new set."""
+    if untrusted_sh.header.height != trusted_sh.header.height + 1:
+        raise ErrInvalidHeader("headers must be adjacent in height")
+    if header_expired(trusted_sh, trusting_period_ns, now_ns):
+        raise ErrOldHeaderExpired(
+            trusted_sh.header.time.unix_ns() + trusting_period_ns, now_ns
+        )
+    _verify_new_header_and_vals(
+        untrusted_sh, untrusted_vals, trusted_sh, now_ns, max_clock_drift_ns, device
+    )
+    if untrusted_sh.header.validators_hash != trusted_sh.header.next_validators_hash:
+        raise ErrInvalidHeader(
+            f"header next validators {trusted_sh.header.next_validators_hash.hex()} "
+            f"do not match new validators {untrusted_sh.header.validators_hash.hex()}"
+        )
+    try:
+        verify_commit_light(
+            trusted_sh.header.chain_id,
+            untrusted_vals,
+            untrusted_sh.commit.block_id,
+            untrusted_sh.header.height,
+            untrusted_sh.commit,
+            device=device,
+            comb_cache=comb_cache,
+        )
+    except Exception as e:  # noqa: BLE001
+        raise ErrInvalidHeader(f"invalid commit: {e}") from e
+
+
+def verify_non_adjacent(
+    trusted_sh,
+    trusted_vals,
+    untrusted_sh,
+    untrusted_vals,
+    trusting_period_ns: int,
+    now_ns: int,
+    max_clock_drift_ns: int = DEFAULT_MAX_CLOCK_DRIFT_NS,
+    trust_level: Fraction = DEFAULT_TRUST_LEVEL,
+    *,
+    device="cuda",
+    comb_cache=None,
+) -> None:
+    """verifier.go:30 — 1/3-trusting of the old set + 2/3 of the new,
+    sharing one SignatureCache across the two passes."""
+    if untrusted_sh.header.height == trusted_sh.header.height + 1:
+        raise ErrInvalidHeader("headers must be non-adjacent in height")
+    if header_expired(trusted_sh, trusting_period_ns, now_ns):
+        raise ErrOldHeaderExpired(
+            trusted_sh.header.time.unix_ns() + trusting_period_ns, now_ns
+        )
+    _verify_new_header_and_vals(
+        untrusted_sh, untrusted_vals, trusted_sh, now_ns, max_clock_drift_ns, device
+    )
+
+    cache = SignatureCache()
+    try:
+        verify_commit_light_trusting(
+            trusted_sh.header.chain_id,
+            trusted_vals,
+            untrusted_sh.commit,
+            trust_level,
+            cache=cache,
+            device=device,
+            comb_cache=comb_cache,
+        )
+    except NotEnoughVotingPowerError as e:
+        raise ErrNewValSetCantBeTrusted(str(e)) from e
+
+    # always last: untrusted_vals can be made arbitrarily large to DoS
+    try:
+        verify_commit_light(
+            trusted_sh.header.chain_id,
+            untrusted_vals,
+            untrusted_sh.commit.block_id,
+            untrusted_sh.header.height,
+            untrusted_sh.commit,
+            cache=cache,
+            device=device,
+            comb_cache=comb_cache,
+        )
+    except Exception as e:  # noqa: BLE001
+        raise ErrInvalidHeader(f"invalid commit: {e}") from e
+
+
+def verify(
+    trusted_sh,
+    trusted_vals,
+    untrusted_sh,
+    untrusted_vals,
+    trusting_period_ns: int,
+    now_ns: int,
+    max_clock_drift_ns: int = DEFAULT_MAX_CLOCK_DRIFT_NS,
+    trust_level: Fraction = DEFAULT_TRUST_LEVEL,
+    *,
+    device="cuda",
+    comb_cache=None,
+) -> None:
+    """verifier.go:130 — dispatch on adjacency."""
+    if untrusted_sh.header.height != trusted_sh.header.height + 1:
+        verify_non_adjacent(
+            trusted_sh, trusted_vals, untrusted_sh, untrusted_vals,
+            trusting_period_ns, now_ns, max_clock_drift_ns, trust_level,
+            device=device, comb_cache=comb_cache,
+        )
+    else:
+        verify_adjacent(
+            trusted_sh, untrusted_sh, untrusted_vals, trusting_period_ns, now_ns,
+            max_clock_drift_ns, device=device, comb_cache=comb_cache,
+        )
+
+
+def verify_backwards(untrusted_header, trusted_header) -> None:
+    """verifier.go:205 — hash-linked walk to an earlier height (host
+    header hashes only)."""
+    try:
+        untrusted_header.validate_basic()
+    except Exception as e:  # noqa: BLE001
+        raise ErrInvalidHeader(str(e)) from e
+    if untrusted_header.chain_id != trusted_header.chain_id:
+        raise ErrInvalidHeader("header belongs to another chain")
+    if untrusted_header.time.unix_ns() >= trusted_header.time.unix_ns():
+        raise ErrInvalidHeader(
+            "expected older header to have a time before the trusted header"
+        )
+    if trusted_header.last_block_id.hash != untrusted_header.hash():
+        raise ErrInvalidHeader(
+            f"trusted header's LastBlockID {trusted_header.last_block_id.hash.hex()} "
+            f"does not match older header's hash {untrusted_header.hash().hex()}"
+        )

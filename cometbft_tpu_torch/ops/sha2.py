@@ -1,11 +1,13 @@
 """The hash half of the comb verify path: payload decode with device-side
-R || A || M block assembly (K1) and batched SHA-512 (K2).
+R || A || M block assembly (K1) and batched SHA-512 (K2); and batched
+SHA-256 (K7), the leaf hash of the Merkle trees (ops/merkle.py).
 
-Kernels (CUDA C++ in csrc/sha2.cu):
+Kernels (CUDA C++ in csrc/sha2.cu and csrc/merkle.cu):
 
   K1 ``parse_verify_payload``  replaces cometbft_tpu/ops/sha2.py:355
      (with ram_blocks_from_parts, :311)
   K2 ``sha512_blocks``         replaces cometbft_tpu/ops/sha2.py:189
+  K7 ``sha256_blocks``         replaces cometbft_tpu/ops/sha2.py:81
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 PyTorch version for a CPU tensor; ``LAUNCHES`` counts kernel launches.
@@ -22,10 +24,11 @@ import torch
 
 from .. import _build
 
-LAUNCHES = {"parse_verify_payload": 0, "sha512_blocks": 0}
+LAUNCHES = {"parse_verify_payload": 0, "sha512_blocks": 0, "sha256_blocks": 0}
 
-# SHA-512 round constants and initial state, derived from their public
-# definition (fractional parts of cube / square roots of the first primes).
+# SHA-512 and SHA-256 round constants and initial states, derived from
+# their public definition (fractional parts of cube / square roots of the
+# first primes), as cometbft_tpu/ops/sha2.py:59-69 derives them.
 
 
 def _primes(n: int) -> list[int]:
@@ -49,6 +52,8 @@ def _iroot(x: int, k: int) -> int:
 _M64 = (1 << 64) - 1
 K512 = [_iroot(p << 192, 3) & _M64 for p in _primes(80)]
 H512 = [_iroot(p << 128, 2) & _M64 for p in _primes(8)]
+K256 = [_iroot(p << 96, 3) & 0xFFFFFFFF for p in _primes(64)]
+H256 = [_iroot(p << 64, 2) & 0xFFFFFFFF for p in _primes(8)]
 
 
 def nblocks_for(maxm: int) -> int:
@@ -236,3 +241,117 @@ def launch_k2(blocks, active, digest) -> None:
     )
     _build.check(code, "k2_sha512_blocks")
     LAUNCHES["sha512_blocks"] += 1
+
+
+# ------------------------------------------------------------------ K7
+
+
+def pad_messages_sha256(msgs: list[bytes], max_len: int | None = None, prefix: bytes = b"",
+                        out: np.ndarray | None = None):
+    """Host: messages -> (buf (n, nb, 64) uint8, active (n,) int32) for
+    sha256_blocks (a copy of cometbft_tpu/ops/sha2.py:413, byte for byte):
+    each row is ``prefix + msg`` padded in its own final block (0x80,
+    zeros, the 64-bit big-endian bit length), nb = the longest row's block
+    count (at least ``max_len``'s).  Rows of one length are written in one
+    block write.  ``out``, when given, is a zeroed uint8 buffer of
+    n * nb * 64 bytes (e.g. a view of a page-locked tensor) that the
+    blocks are written into; the returned ``buf`` is then a view of it."""
+    n = len(msgs)
+    p = len(prefix)
+    lens = np.fromiter((len(m) for m in msgs), np.int64, n)
+    longest = int(lens.max(initial=0)) + p
+    if max_len is not None:
+        longest = max(longest, max_len)
+    nblocks = max(1, (longest + 9 + 63) // 64)
+    if out is None:
+        buf = np.zeros((n, nblocks * 64), dtype=np.uint8)
+    else:
+        buf = out.reshape(n, nblocks * 64)
+    if p:
+        buf[:, :p] = np.frombuffer(prefix, np.uint8)
+    for ln in np.unique(lens).tolist():
+        if ln:
+            rows = np.flatnonzero(lens == ln)
+            buf[rows, p : p + ln] = np.frombuffer(
+                b"".join(msgs[i] for i in rows.tolist()), np.uint8
+            ).reshape(-1, ln)
+    lens = lens + p
+    active = (lens + 9 + 63) // 64
+    ar = np.arange(n)
+    buf[ar, lens] = 0x80
+    bits = lens * 8
+    for k in range(8):
+        buf[ar, active * 64 - 1 - k] = (bits >> (8 * k)) & 0xFF
+    return buf.reshape(n, nblocks, 64), active.astype(np.int32)
+
+
+def sha256_blocks_plain(blocks: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7 on uint32 words held in int64 tensors, masked
+    to 32 bits after every addition."""
+    V, nb, _ = blocks.shape
+    dev = blocks.device
+    M = 0xFFFFFFFF
+    b = blocks.to(torch.int64).reshape(V, nb, 16, 4)
+    w_all = (b[..., 0] << 24) | (b[..., 1] << 16) | (b[..., 2] << 8) | b[..., 3]
+
+    def rotr(x, n):
+        return ((x >> n) | (x << (32 - n))) & M
+
+    st = [torch.full((V,), h, dtype=torch.int64, device=dev) for h in H256]
+    for blk in range(nb):
+        w = [w_all[:, blk, i] for i in range(16)]
+        for t in range(16, 64):
+            s0 = rotr(w[t - 15], 7) ^ rotr(w[t - 15], 18) ^ (w[t - 15] >> 3)
+            s1 = rotr(w[t - 2], 17) ^ rotr(w[t - 2], 19) ^ (w[t - 2] >> 10)
+            w.append((w[t - 16] + s0 + w[t - 7] + s1) & M)
+        a, bb, c, d, e, f, g, h = st
+        for t in range(64):
+            S1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)
+            ch = (e & f) ^ (~e & M & g)
+            t1 = (h + S1 + ch + K256[t] + w[t]) & M
+            S0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)
+            mj = (a & bb) ^ (a & c) ^ (bb & c)
+            h, g, f, e, d, c, bb, a = g, f, e, (d + t1) & M, c, bb, a, (t1 + S0 + mj) & M
+        live = active > blk
+        st = [torch.where(live, (s + n) & M, s) for s, n in zip(st, (a, bb, c, d, e, f, g, h))]
+    out = torch.stack(st, dim=1)  # (V, 8) words, big-endian bytes out
+    by = torch.stack([(out >> (24 - 8 * k)) & 0xFF for k in range(4)], dim=-1)
+    return by.reshape(V, 32).to(torch.uint8)
+
+
+def _check_sha256_args(blocks: torch.Tensor, active: torch.Tensor) -> None:
+    if blocks.dtype != torch.uint8 or blocks.dim() != 3 or blocks.shape[2] != 64:
+        raise ValueError("blocks must be (N, nb, 64) uint8")
+    if active.shape != blocks.shape[:1] or active.device != blocks.device:
+        raise ValueError("active must be (N,) on the blocks' device")
+
+
+def sha256_blocks(blocks: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """(N, nb, 64) uint8 SHA-256-padded blocks, (N,) int32 active block
+    counts -> (N, 32) uint8 digests; a row stops after its own last
+    block."""
+    _check_sha256_args(blocks, active)
+    if blocks.device.type == "cpu":
+        return sha256_blocks_plain(blocks, active)
+    if blocks.device.type != "cuda":
+        raise ValueError(f"unsupported device {blocks.device}")
+    digest = torch.empty((blocks.shape[0], 32), dtype=torch.uint8, device=blocks.device)
+    blocks = blocks.contiguous()
+    if blocks.data_ptr() % 4:
+        blocks = blocks.clone()
+    launch_k7(blocks, active.to(torch.int32).contiguous(), digest)
+    return digest
+
+
+def launch_k7(blocks, active, digest) -> None:
+    """K7 into a preallocated (N, 32) digest (which may be a row range of
+    a larger contiguous tensor) on the current stream."""
+    if blocks.data_ptr() % 4 or digest.data_ptr() % 4:
+        raise ValueError("K7 loads and stores 4-byte words: blocks and digest must be 4-byte aligned")
+    code = _build.lib("merkle").k7_sha256_blocks(
+        blocks.data_ptr(), active.data_ptr(), digest.data_ptr(),
+        blocks.shape[0], blocks.shape[1],
+        torch.cuda.current_stream(blocks.device).cuda_stream,
+    )
+    _build.check(code, "k7_sha256_blocks")
+    LAUNCHES["sha256_blocks"] += 1

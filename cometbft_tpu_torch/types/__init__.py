@@ -1,5 +1,5 @@
-"""Domain types of the commit path: blocks, votes, validator sets and
-commit verification."""
+"""Domain types of the commit and light-client paths: blocks, headers,
+votes, validator sets, light blocks and commit verification."""
 
 from .block import (
     BLOCK_ID_FLAG_ABSENT,
@@ -8,8 +8,10 @@ from .block import (
     BlockID,
     Commit,
     CommitSig,
+    Header,
     PartSetHeader,
 )
+from .light_block import LightBlock, SignedHeader
 from .validators import Validator, ValidatorSet
 from .vote import Vote
 
@@ -20,7 +22,10 @@ __all__ = [
     "BlockID",
     "Commit",
     "CommitSig",
+    "Header",
+    "LightBlock",
     "PartSetHeader",
+    "SignedHeader",
     "Validator",
     "ValidatorSet",
     "Vote",

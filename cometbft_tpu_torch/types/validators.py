@@ -1,11 +1,15 @@
 """Validator and ValidatorSet (reference: types/validator.go,
-types/validator_set.go): sorting, total power, proposer, and the pubkey
-list that keys the comb-table cache.  The part of
-cometbft_tpu/types/validators.py that commit verification reads; the
-set's proto form, hash and priority rotation are not ported yet.
+types/validator_set.go): sorting, total power, proposer, the pubkey
+list that keys the comb-table cache, and the set's RFC-6962 hash over
+SimpleValidator encodings.  The part of cometbft_tpu/types/validators.py
+that commit and light-client verification read; the set's proto form
+and priority rotation are not ported yet.
 """
 
 from __future__ import annotations
+
+from ..crypto import merkle
+from ..wire.types import PublicKey, SimpleValidator
 
 MAX_INT64 = (1 << 63) - 1
 MAX_TOTAL_VOTING_POWER = MAX_INT64 // 8
@@ -22,6 +26,26 @@ class Validator:
 
     def copy(self) -> "Validator":
         return Validator(self.pub_key, self.voting_power, self.proposer_priority)
+
+    def bytes(self) -> bytes:
+        """SimpleValidator proto encoding — the hashing form
+        (types/validator.go Validator.Bytes).  The port carries ed25519
+        keys only."""
+        if self.pub_key.type != "ed25519":
+            raise ValueError(f"key type {self.pub_key.type!r} not supported")
+        sv = SimpleValidator(
+            pub_key=PublicKey(ed25519=self.pub_key.bytes()),
+            voting_power=self.voting_power,
+        )
+        return sv.encode()
+
+    def validate_basic(self) -> None:
+        if self.pub_key is None:
+            raise ValueError("validator does not have a public key")
+        if self.voting_power < 0:
+            raise ValueError("validator has negative voting power")
+        if len(self.address) != 20:
+            raise ValueError("validator address is the wrong size")
 
     def compare_proposer_priority(self, other: "Validator") -> "Validator":
         """Higher priority wins; ties broken by smaller address
@@ -68,6 +92,9 @@ class ValidatorSet:
         )
         self._total_voting_power: int | None = None
         self._pub_keys_bytes: list[bytes] | None = None
+        # memos of hash() and get_by_address(): the set is never changed in place
+        self._hash: bytes | None = None
+        self._by_address: dict[bytes, int] | None = None
         self.proposer: Validator | None = None
         if self.validators:
             self._update_total_voting_power()
@@ -75,6 +102,9 @@ class ValidatorSet:
 
     def size(self) -> int:
         return len(self.validators)
+
+    def is_nil_or_empty(self) -> bool:
+        return not self.validators
 
     def __len__(self):
         return len(self.validators)
@@ -95,10 +125,19 @@ class ValidatorSet:
         return self._total_voting_power
 
     def get_by_address(self, address: bytes) -> tuple[int, Validator | None]:
-        for i, v in enumerate(self.validators):
-            if v.address == address:
-                return i, v
-        return -1, None
+        """(index, validator) of the first validator with this address, or
+        (-1, None).  An index built once per set (the JAX package scans
+        the list, which makes a trusting check O(signatures x set))."""
+        if self._by_address is None:
+            n = len(self.validators)
+            self._by_address = {
+                v.address: n - 1 - j for j, v in enumerate(reversed(self.validators))
+            }
+        i = self._by_address.get(address, -1)
+        return (i, self.validators[i]) if i >= 0 else (-1, None)
+
+    def has_address(self, address: bytes) -> bool:
+        return self.get_by_address(address)[1] is not None
 
     def get_proposer(self) -> Validator | None:
         if not self.validators:
@@ -126,6 +165,30 @@ class ValidatorSet:
         if self._pub_keys_bytes is None:
             self._pub_keys_bytes = [v.pub_key.bytes() for v in self.validators]
         return self._pub_keys_bytes
+
+    def validate_basic(self) -> None:
+        if self.is_nil_or_empty():
+            raise ValueError("validator set is nil or empty")
+        for v in self.validators:
+            v.validate_basic()
+        p = self.get_proposer()
+        if p is None:
+            raise ValueError("proposer failed validate basic")
+        p.validate_basic()
+        if not self.has_address(p.address):
+            raise ValueError("proposer not in validator set")
+
+    def hash(self, device="cuda") -> bytes:
+        """RFC-6962 root over the SimpleValidator encodings
+        (validator_set.go:386), memoised.  Sets of at least
+        crypto/merkle.DEVICE_THRESHOLD validators take the kernel route
+        on ``device`` (K7, then one K8 per level), smaller sets hashlib,
+        as the JAX package routes them."""
+        if self._hash is None:
+            items = [v.bytes() for v in self.validators]
+            route = device if len(items) >= merkle.DEVICE_THRESHOLD else False
+            self._hash = merkle.hash_from_byte_slices(items, device=route)
+        return self._hash
 
     def __repr__(self):
         return f"ValidatorSet({len(self.validators)} validators, power={self.total_voting_power()})"

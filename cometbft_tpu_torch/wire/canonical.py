@@ -26,6 +26,9 @@ class Timestamp(Message):
         Field(2, "nanos", "varint"),
     ]
 
+    def unix_ns(self) -> int:
+        return self.seconds * 1_000_000_000 + self.nanos
+
     def __hash__(self):
         return hash((self.seconds, self.nanos))
 

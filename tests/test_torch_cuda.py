@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K6 against their plain versions on the card
+"""The CUDA kernels K1-K9 against their plain versions on the card
 (marker ``cuda``: these skip where no CUDA device is present; run them
 on the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``).
 Small shapes; chip_smoke.py holds the kernels at the main path's."""
@@ -155,3 +155,79 @@ def test_k6_matches_plain(dev):
     want = cv.assemble_churn_plain(base, base_valid, fresh, fresh_valid, new_rows, base_rows, fresh_rows, V)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert not bool(got[1][perm[36]]) and int(got[0][perm[36]].abs().sum()) == 0
+
+
+def _stale_sha256_rows(rng, lens, nb):
+    """SHA-256-padded rows of the given message lengths in nb blocks, with
+    random (stale) bytes in every block past each row's own last one."""
+    from cometbft_tpu_torch.ops import sha2
+
+    msgs = [rng.bytes(n) for n in lens]
+    blocks, active = sha2.pad_messages_sha256(msgs, max_len=nb * 64 - 9)
+    blocks = blocks.copy()
+    for i, a in enumerate(active.tolist()):
+        blocks[i, a:] = rng.integers(0, 256, size=(nb - a, 64), dtype=np.uint8)
+    return msgs, blocks, active
+
+
+def test_k7_matches_plain_and_hashlib(dev):
+    """K7 on 300 rows of 1-4 active blocks (a ragged last block of
+    threads), stale bytes past each row's message."""
+    import hashlib
+
+    from cometbft_tpu_torch.ops import sha2
+
+    rng = np.random.default_rng(10)
+    lens = [0, 55, 56, 63, 64, 119, 120, 200] + rng.integers(0, 240, size=292).tolist()
+    msgs, blocks, active = _stale_sha256_rows(rng, lens, 4)
+    b, a = torch.from_numpy(blocks).to(dev), torch.from_numpy(active).to(dev)
+    got = sha2.sha256_blocks(b, a)
+    assert torch.equal(got, sha2.sha256_blocks_plain(b, a))
+    assert [bytes(r) for r in got.cpu().numpy()] == [hashlib.sha256(m).digest() for m in msgs]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 9, 130, 1000])
+def test_k8_levels_match_plain_and_host(dev, n):
+    """Every level from K8 equals the plain level computed from the same
+    input level; the root equals the host route's."""
+    from cometbft_tpu_torch.crypto import merkle as cm
+    from cometbft_tpu_torch.ops import merkle as M
+
+    rng = np.random.default_rng(11 + n)
+    leaves = [rng.bytes(int(rng.integers(0, 100))) for _ in range(n)]
+    blocks, active, _ = M.stage_leaves(leaves, dev)
+    flat = M.all_levels(blocks, active)
+    offs = M.level_offsets(n)
+    for lvl, sz in enumerate(M.level_sizes(n)):
+        want = flat.clone()
+        want[offs[lvl + 1] : offs[lvl + 1] + (sz + 1) // 2] = 0
+        M.merkle_level_plain(want, offs[lvl], sz, offs[lvl + 1])
+        assert torch.equal(flat, want), f"level {lvl} of {n} leaves"
+    assert bytes(flat[-1].cpu().numpy()) == cm.hash_from_byte_slices(leaves, device=False)
+
+
+def test_k9_matches_plain_with_missing_rows(dev):
+    from cometbft_tpu_torch.ops import merkle as M
+
+    rng = np.random.default_rng(12)
+    flat = torch.from_numpy(rng.integers(0, 256, size=(777, 32), dtype=np.uint8)).to(dev)
+    coord = torch.from_numpy(rng.integers(-1, 777, size=(301, 3), dtype=np.int32)).to(dev)
+    coord[0, 0] = -1
+    got = M.merkle_gather(flat, coord)
+    assert torch.equal(got, M.merkle_gather_plain(flat, coord.reshape(-1)).reshape(301, 3, 32))
+    assert int(got[0, 0].sum()) == 0
+
+
+def test_device_proof_routes_match_host(dev):
+    """K7 -> K8 -> K9 through the crypto/merkle routes: every proof equal
+    to proofs_from_byte_slices's, at a size with odd levels."""
+    from cometbft_tpu_torch.crypto import merkle as cm
+
+    rng = np.random.default_rng(13)
+    leaves = [rng.bytes(64) for _ in range(1001)]
+    root, proofs = cm.proofs_from_byte_slices(leaves)
+    idx = rng.permutation(1001).tolist()
+    r1, p1 = cm.device_proofs_from_byte_slices(leaves, idx, device=dev)
+    r2, p2, dedup = cm.device_multiproof(leaves, idx, device=dev)
+    assert r1 == r2 == root == cm.hash_from_byte_slices(leaves, device=dev)
+    assert p1 == p2 == [proofs[i] for i in idx] and dedup > 1

@@ -4,6 +4,7 @@ on the card by default — without one they raise rather than drop to the
 CPU (checked where no CUDA device is present)."""
 
 import ast
+import hashlib
 import pathlib
 
 import numpy as np
@@ -103,3 +104,40 @@ def test_kernel_wrappers_run_plain_only_for_cpu_tensors(no_card):
     pubs = torch.zeros((2, 32), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         sha2.parse_verify_payload(payload, pubs)
+
+
+def test_merkle_default_route_raises_without_card(no_card):
+    """At DEVICE_THRESHOLD leaves the default route is the kernels on the
+    card: with no card it raises, where the JAX package would fall back
+    to hashlib; below the threshold the host route answers."""
+    from cometbft_tpu_torch._device import NoCudaDevice
+    from cometbft_tpu_torch.crypto import merkle as cm
+
+    leaves = [b"leaf-%d" % i for i in range(cm.DEVICE_THRESHOLD)]
+    with pytest.raises(NoCudaDevice):
+        cm.hash_from_byte_slices(leaves)
+    with pytest.raises(NoCudaDevice):
+        cm.hash_from_byte_slices(leaves[:3], device=True)
+    with pytest.raises(NoCudaDevice):
+        cm.device_proofs_from_byte_slices(leaves[:3], [0])
+    with pytest.raises(NoCudaDevice):
+        cm.device_multiproof(leaves[:3], [0])
+    small = leaves[: cm.DEVICE_THRESHOLD - 1]
+    assert cm.hash_from_byte_slices(small) == cm.hash_from_byte_slices(small, device=False)
+
+
+def test_validator_set_hash_and_prover_raise_without_card(no_card):
+    from cometbft_tpu_torch import types as T
+    from cometbft_tpu_torch._device import NoCudaDevice
+    from cometbft_tpu_torch.crypto import ed25519 as host
+    from cometbft_tpu_torch.crypto import merkle as cm
+    from cometbft_tpu_torch.models import proof_server
+
+    pubs = [host.PubKey(hashlib.sha256(b"%d" % i).digest()) for i in range(cm.DEVICE_THRESHOLD)]
+    vals = T.ValidatorSet([T.Validator(p, 1) for p in pubs])
+    with pytest.raises(NoCudaDevice):
+        vals.hash()
+    assert vals.hash(device="cpu") == cm.hash_from_byte_slices(
+        [v.bytes() for v in vals.validators], device=False)
+    with pytest.raises(NoCudaDevice):
+        proof_server.ProofProver()
