@@ -4,9 +4,11 @@ comb-cached kernels, the uncached (Straus) verifier at the same width, a
 validator-set change with its background churn build, a light-client
 trusting check on 150 validators, the comb verifier's demotion, the
 light client's header checks at 10,000 validators (validator-set hash on
-the Merkle kernels, then the commit), and batched Merkle proof serving
-over a 16,384-leaf tree — on one NVIDIA card, holds each kernel against
-its plain PyTorch version, and prints the card's numbers.
+the Merkle kernels, then the commit), batched Merkle proof serving over
+a 16,384-leaf tree, and the secp256k1 ECDSA lane on a 4,096-transaction
+CheckTx batch of the Cosmos, Ethereum and ecrecover wire shapes — on one
+NVIDIA card, holds each kernel against its plain PyTorch version, and
+prints the card's numbers.
 
     python3 chip_smoke.py
 
@@ -52,13 +54,29 @@ it and read just after it.
  11. K7-K9 against their plain versions (byte-exact) — K7 on rows of 1-3
      active blocks with stale bytes, K8 on every level of both trees, K9
      with -1 coordinates — and their times, K9 beside index_select;
- 12. one JSON line with every kernel, then the contract line.
+ 12. secp inputs: pools pre-signed with the port's host signers (32
+     senders a wire shape x 4 transactions, payloads of 40-97 bytes and
+     of 234), replayed into batches of 4,096 CheckTx envelopes with 22
+     planted rows of every invalid class;
+ 13. the secp paths through crypto/batch.create_batch_verifier, each with
+     its launch counts: the mixed batch (K12<1,1>), its Shamir witness
+     (COMETBFT_TPU_SECP_GLV=0: K12<0,1>), a batch without ecrecover rows
+     (K12<1,0>, K12<0,0>), and the same with 256-byte sign-bytes, hashed
+     off K12 (hashlib SHA-256, K10 Keccak, then K11<*,1> and K11<*,0>);
+     GLV and Shamir verdicts identical, every path's verdicts equal to
+     the host oracle on the planted rows and 64 sampled rows;
+ 14. K10 and the eight K11 / K12 instantiations against their plain
+     versions on every row, their times, and the work each spent (the
+     bound's operation count, per row from the run's data);
+ 15. SecpBatchVerifier.verify p50 over 10 calls with last_timings;
+ 16. one JSON line with every kernel, then the contract line.
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -163,6 +181,397 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+# ---------------------------------------------------------------- secp lane
+# The secp256k1 ECDSA lane (K10-K12): a 4,096-transaction CheckTx batch,
+# a third in each wire shape, replayed from pools pre-signed with the
+# port's host signers (32 senders a shape x 4 transactions, the JAX
+# firehose's COMETBFT_TPU_SECP_FIREHOSE_SENDERS), with planted rows of
+# every invalid class.
+N_SECP = 4_096  # bench.py's top secp batch (verify_secp_tpu_batch_p50_ms)
+SECP_SENDERS, SECP_TXS_PER_SENDER = 32, 4
+SECP_PAYLOAD = (40, 97)  # sign-bytes 62-119 B: every message fits K12's blocks
+SECP_LONG_PAYLOAD = 234  # sign-bytes 256 B: hashed off K12 (host SHA-256, K10)
+N_SECP_ORACLE_SAMPLE = 64
+SECP_TIMING = {  # (kernel iters, warm-up); the plain versions run once, cold
+    "keccak256_blocks": (50, 2),
+    "secp": (5, 1),
+}
+# Field multiplies per operation, from csrc/secp256k1.cuh: doubling 7,
+# mixed add 11, general add 16, inversion and square root 270; a scalar
+# Montgomery multiply (CIOS) is 64 product and 64 reduction multiply-adds.
+FM_DBL, FM_MADD, FM_ADD, FM_CHAIN = 7, 11, 16, 270
+OPS_PER_MONT_MUL = 128 * 4
+# Keccak-f per block, from csrc/keccak.cuh: 7,474 32-bit operations
+OPS_PER_KECCAK_BLOCK = 7_474
+
+
+def _nm2_window_muls(n: int) -> int:
+    """Montgomery multiplies of sc_inv_mont: 14 table entries, 4 squarings
+    per digit after the first, one multiply per nonzero digit."""
+    nibs = [((n - 2) >> (4 * i)) & 15 for i in range(63, -1, -1)]
+    return 14 + 4 * 63 + sum(1 for d in nibs[1:] if d)
+
+
+def _signed_digits(k: int, nwin: int) -> list[int]:
+    out, carry = [], 0
+    for i in range(nwin):
+        v = ((k >> (4 * i)) & 15) + carry
+        carry = int(v >= 8)
+        out.append(v - 16 * carry)
+    return out
+
+
+def secp_row_work(item, glv: bool, fused: bool, mods) -> tuple[int, int, int, int]:
+    """(field multiplies, scalar Montgomery multiplies, Keccak blocks,
+    SHA-256 blocks) that K11 (fused=False) or K12 (fused=True) spends on
+    one row of this run's data, following secp_verify_row's branches."""
+    host_secp, host_eth, sv, S = mods
+    pub, msg, sig = item
+    P, N = host_secp.P, host_secp.N
+    rec, eth = len(pub) == 20, len(pub) == 65
+    kb = sb = 0
+    if fused:
+        if rec or eth:
+            kb = len(msg) // 136 + 1
+        else:
+            sb = (len(msg) + 9 + 63) // 64
+    fm = mm = 0
+    fact = None if rec else sv._decode_pub(pub)
+    staged = (len(sig) == 65) if rec else (fact is not None and len(sig) == (65 if eth else 64))
+    if not staged:
+        return 0, 0, 0, 0
+    r, s = int.from_bytes(sig[:32], "big"), int.from_bytes(sig[32:64], "big")
+    v = sig[64] if len(sig) == 65 else 0
+    if not (0 < r < N and 0 < s <= N // 2 and (v <= 1 or not (rec or eth))):
+        return fm, mm, kb, sb
+    if rec:
+        fm += 3 + FM_CHAIN + 1
+        y2 = (pow(r, 3, P) + 7) % P
+        y = pow(y2, (P + 1) // 4, P)
+        if y * y % P != y2:
+            return fm, mm, kb, sb
+        if (y & 1) != v:
+            y = P - y
+    else:
+        fm += 4
+    h = host_eth.keccak256(msg) if (rec or eth) else hashlib.sha256(msg).digest()
+    e = int.from_bytes(h, "big")
+    w = pow(r if rec else s, N - 2, N)
+    u1 = (-e * w) % N if rec else e * w % N
+    u2 = (s if rec else r) * w % N
+    mm += 1 + _nm2_window_muls(N) + 2
+    fm += FM_DBL + 6 * FM_MADD  # the lane's table of j Q
+    if glv:
+        halves = [abs(x) for k in (u1, u2) for x in S.split_host(k)]
+        mm += 2 * 3
+        fm += 2 * 2  # the two 384-bit rounding products, about one field multiply each
+        digits = [_signed_digits(k, S.GLV_WINDOWS) for k in halves]
+        costs = [FM_MADD, FM_MADD, FM_ADD, FM_ADD + 1]
+    else:
+        digits = [_signed_digits(k, S.SHAMIR_WINDOWS) for k in (u1, u2)]
+        costs = [FM_MADD, FM_ADD]
+    top = max((i for d in digits for i, x in enumerate(d) if x), default=-1)
+    fm += 4 * max(top, 0) * FM_DBL
+    fm += sum(c for d, c in zip(digits, costs) for x in d if x)
+    fm += FM_CHAIN + 4  # affine normalisation
+    if rec:
+        kb += 1  # the address hash
+    return fm, mm, kb, sb
+
+
+def secp_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_abs_err):
+    """Phases 12-15 of main(): the secp lane.  Returns (results, times,
+    bounds, meta, record) for the kernels JSON line."""
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.crypto import secp256k1 as host_secp
+    from cometbft_tpu_torch.crypto import secp256k1eth as host_eth
+    from cometbft_tpu_torch.models import secp_verifier as sv
+    from cometbft_tpu_torch.ops import keccak as K
+    from cometbft_tpu_torch.ops import secp256k1 as S
+    from cometbft_tpu_torch.verifysvc import checktx
+
+    mods = (host_secp, host_eth, sv, S)
+    P, N = host_secp.P, host_secp.N
+    ktypes = ("secp256k1", "secp256k1eth", "ecrecover")
+    signers = {"secp256k1": host_secp.PrivKey, "secp256k1eth": host_eth.PrivKey,
+               "ecrecover": host_eth.RecoverPrivKey}
+
+    # ------------------------------------------------ 12. inputs
+    t0 = time.perf_counter()
+    keys = {kt: [signers[kt].from_seed(rng.bytes(32)) for _ in range(SECP_SENDERS)] for kt in ktypes}
+
+    def pool(payload_len):
+        out = {}
+        for kt in ktypes:
+            txs = []
+            for sk in keys[kt]:
+                for _ in range(SECP_TXS_PER_SENDER):
+                    ln = payload_len if payload_len else int(rng.integers(SECP_PAYLOAD[0], SECP_PAYLOAD[1] + 1))
+                    txs.append(checktx.make_signed_tx(sk, rng.bytes(ln)))
+            out[kt] = txs
+        return out
+
+    pools, long_pools = pool(0), pool(SECP_LONG_PAYLOAD)
+    n_signed = 2 * len(ktypes) * SECP_SENDERS * SECP_TXS_PER_SENDER
+
+    def item_of(tx):
+        kt, pub, sig, payload = checktx.parse_signed_tx(tx)
+        return pub, checktx.SIGN_DOMAIN + payload, sig
+
+    # planted rows: every invalid class of the JAX package's corpus and
+    # the firehose storm pool, each from a fresh key
+    def planted_rows():
+        rows = []
+
+        def signed(kt, tag):
+            sk = signers[kt].from_seed(b"planted-" + tag)
+            msg = checktx.SIGN_DOMAIN + b"planted " + tag
+            return sk, sk.pub_key().data, msg, sk.sign(msg)
+
+        def high_s(sig):
+            return sig[:32] + (N - int.from_bytes(sig[32:64], "big")).to_bytes(32, "big") + sig[64:]
+
+        x_ns = 5
+        while True:
+            y2 = (pow(x_ns, 3, P) + 7) % P
+            if pow(y2, (P + 1) // 4, P) ** 2 % P != y2:
+                break
+            x_ns += 1
+        sk, p, m, s = signed("secp256k1", b"c")
+        other = host_secp.PrivKey.from_seed(b"planted-other").pub_key().data
+        rows += [
+            ("tampered signature", (p, m, s[:40] + bytes([s[40] ^ 1]) + s[41:])),
+            ("tampered message", (p, m + b"!", s)),
+            ("high s", (p, m, high_s(s))),
+            ("r = 0", (p, m, bytes(32) + s[32:])),
+            ("s = 0", (p, m, s[:32] + bytes(32))),
+            ("r >= n", (p, m, N.to_bytes(32, "big") + s[32:])),
+            ("s >= n", (p, m, s[:32] + (N + 1).to_bytes(32, "big"))),
+            ("wrong key", (other, m, s)),
+            ("bad prefix", (b"\x05" + p[1:], m, s)),
+            ("x >= p", (b"\x02" + P.to_bytes(32, "big"), m, s)),
+            ("off-curve x", (b"\x02" + x_ns.to_bytes(32, "big"), m, s)),
+            ("Cosmos key, Ethereum signature length", (p, m, s + b"\x01")),
+        ]
+        sk, p, m, s = signed("secp256k1eth", b"e")
+        rows += [
+            ("wrong v", (p, m, s[:64] + bytes([s[64] ^ 1]))),
+            ("v = 2", (p, m, s[:64] + b"\x02")),
+            ("tampered r", (p, m, bytes([s[0] ^ 1]) + s[1:])),
+            ("off-curve Ethereum key", (p[:64] + bytes([p[64] ^ 1]), m, s)),
+            ("Ethereum key, Cosmos signature length", (p, m, s[:64])),
+            ("high s, flipped v", (p, m, high_s(s[:64] + bytes([s[64] ^ 1])))),
+        ]
+        sk, p, m, s = signed("ecrecover", b"r")
+        rows += [
+            ("wrong ecrecover address", (b"\x42" * 20, m, s)),
+            ("ecrecover wrong v", (p, m, s[:64] + bytes([s[64] ^ 1]))),
+            ("ecrecover r with no square root", (p, m, x_ns.to_bytes(32, "big") + s[32:])),
+            ("ecrecover tampered message", (p, m + b"!", s)),
+        ]
+        return rows
+
+    planted = planted_rows()
+    idx_planted = sorted(rng.choice(N_SECP, len(planted), replace=False).tolist())
+
+    def batch_of(pl, shapes=ktypes):
+        """(items, planted row indices): pool rows round-robin over the
+        shapes, planted rows (those of the shapes) at idx_planted."""
+        items = []
+        for i in range(N_SECP):
+            kt = shapes[i % len(shapes)]
+            items.append(item_of(pl[kt][(i // len(shapes)) % len(pl[kt])]))
+        rows = []
+        for j, i in enumerate(idx_planted):
+            if len(planted[j][1][0]) != 20 or "ecrecover" in shapes:
+                items[i] = planted[j][1]
+                rows.append(i)
+        return items, rows
+
+    (mixed, pl_mixed), (no_rec, pl_no_rec) = batch_of(pools), batch_of(pools, ktypes[:2])
+    (long_mixed, pl_long), (long_no_rec, pl_long_no_rec) = batch_of(long_pools), batch_of(long_pools, ktypes[:2])
+    log(f"[12] secp inputs: {n_signed} signatures in {time.perf_counter() - t0:.1f} s (port host "
+        f"signers; {SECP_SENDERS} senders x {SECP_TXS_PER_SENDER} txs x 3 wire shapes, short and "
+        f"256-byte sign-bytes), replayed into batches of {N_SECP}; {len(planted)} planted rows at "
+        f"{idx_planted[:6]}...: " + "; ".join(lbl for lbl, _ in planted))
+    require(all(len(m) <= 119 for _, m, _ in mixed + no_rec), "a short batch message exceeds 119 B")
+    require(all(len(m) == 256 for i, (_, m, _) in enumerate(long_mixed) if i not in pl_long),
+            "a long batch message is not 256 B")
+
+    # ------------------------------------------------ 13. the paths
+    paths = [  # (name, items, GLV, expected launches)
+        ("secp_mixed", mixed, "1", {"secp_hash_verify_recover": 1}),
+        ("secp_mixed_shamir", mixed, "0", {"secp_hash_verify_noglv_recover": 1}),
+        ("secp_no_ecrecover", no_rec, "1", {"secp_hash_verify": 1}),
+        ("secp_no_ecrecover_shamir", no_rec, "0", {"secp_hash_verify_noglv": 1}),
+        ("secp_long", long_mixed, "1", {"keccak256_blocks": 1, "secp_verify_batch_recover": 1}),
+        ("secp_long_shamir", long_mixed, "0", {"keccak256_blocks": 1, "secp_verify_batch_noglv_recover": 1}),
+        ("secp_long_no_ecrecover", long_no_rec, "1", {"keccak256_blocks": 1, "secp_verify_batch": 1}),
+        ("secp_long_no_ecrecover_shamir", long_no_rec, "0",
+         {"keccak256_blocks": 1, "secp_verify_batch_noglv": 1}),
+    ]
+    secp_names = list(S.LAUNCHES) + ["keccak256_blocks"]
+    verdicts, path_counts = {}, {}
+    for name, items, glv, want in paths:
+        os.environ["COMETBFT_TPU_SECP_GLV"] = glv
+        zero_counts()
+        bv = cbatch.create_batch_verifier("secp256k1", device=dev)
+        for it in items:
+            bv.add(*it)
+        ok, res = bv.verify()
+        got = read_counts(name)
+        path_counts[name] = {k: got[k] for k in secp_names}
+        verdicts[name] = res
+        require(not ok, f"{name}: the planted batch verified")
+        require(all(got[k] == want.get(k, 0) for k in secp_names),
+                f"{name}: launches {path_counts[name]} != {want}")
+    os.environ.pop("COMETBFT_TPU_SECP_GLV", None)
+    for a, b in (("secp_mixed", "secp_mixed_shamir"), ("secp_no_ecrecover", "secp_no_ecrecover_shamir"),
+                 ("secp_long", "secp_long_shamir"), ("secp_long_no_ecrecover", "secp_long_no_ecrecover_shamir")):
+        require(verdicts[a] == verdicts[b], f"GLV and Shamir verdicts differ: {a} / {b}")
+    # the host oracle on every planted row and on sampled pool rows
+    oracle_rows = {}
+    for name, items, pl in (("secp_mixed", mixed, pl_mixed), ("secp_no_ecrecover", no_rec, pl_no_rec),
+                            ("secp_long", long_mixed, pl_long),
+                            ("secp_long_no_ecrecover", long_no_rec, pl_long_no_rec)):
+        pool_rows = [i for i in range(N_SECP) if i not in pl]
+        rows = sorted(set(pl) | set(rng.choice(pool_rows, N_SECP_ORACLE_SAMPLE, replace=False).tolist()))
+        want = [sv._host_verify_one(*items[i]) for i in rows]
+        require([verdicts[name][i] for i in rows] == want, f"{name}: verdicts != host oracle")
+        require(not any(verdicts[name][i] for i in pl), f"{name}: a planted row verified")
+        require(sum(verdicts[name]) == N_SECP - len(pl), f"{name}: valid-row count")
+        oracle_rows[name] = len(rows)
+    log(f"[13] secp paths through crypto/batch.create_batch_verifier: every path's verdicts == host "
+        f"oracle on the planted and {N_SECP_ORACLE_SAMPLE} sampled rows ({oracle_rows}); GLV == "
+        f"Shamir on every batch; launches {json.dumps(path_counts)}")
+
+    # ------------------------------------------------ 14. parity and times
+    results, times, bounds = {}, {}, {}
+    gtab = S.g_table(dev)
+    stages = {
+        "hash_verify_recover": (sv.stage_batch(mixed, dev, True, 119), mixed, True, True),
+        "hash_verify": (sv.stage_batch(no_rec, dev, True, 119), no_rec, True, False),
+        "verify_recover": (sv.stage_batch(long_mixed, dev, False, 119), long_mixed, False, True),
+        "verify": (sv.stage_batch(long_no_rec, dev, False, 119), long_no_rec, False, False),
+    }
+    # K10 on the long batch's Keccak rows, and on rows of 0-300 bytes with
+    # stale bytes past each row's last block
+    st = stages["verify_recover"][0]
+    kb, ka = st["kec_blocks"], st["kec_active"]
+    k10 = K.keccak256_blocks(kb, ka)
+    p10 = K.keccak256_blocks_plain(kb, ka)
+    lens = rng.integers(0, 301, size=N_SECP)
+    lens[:6] = [0, 1, 135, 136, 137, 300]
+    msgs = [rng.bytes(int(n)) for n in lens]
+    sb_np, sa_np = K.pad_messages_keccak(msgs)
+    sb_np = sb_np.copy()
+    past = np.arange(sb_np.shape[1])[None, :] >= sa_np[:, None]
+    sb_np[past] = rng.integers(0, 256, size=(int(past.sum()), K.RATE), dtype=np.uint8)
+    sb, sa = torch.from_numpy(sb_np).to(dev), torch.from_numpy(sa_np).to(dev)
+    k10s, p10s = K.keccak256_blocks(sb, sa), K.keccak256_blocks_plain(sb, sa)
+    torch.cuda.synchronize()
+    require(torch.equal(k10, p10) and torch.equal(k10s, p10s), "K10 != plain")
+    require([bytes(r) for r in k10s[:64].cpu().numpy()] == [host_eth.keccak256(m) for m in msgs[:64]],
+            "K10 != host Keccak")
+    results["keccak256_blocks"] = max(max_abs_err(k10, p10), max_abs_err(k10s, p10s))
+    out10 = torch.empty_like(k10)
+    it, wu = SECP_TIMING["keccak256_blocks"]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    K.keccak256_blocks_plain(kb, ka)
+    end.record()
+    torch.cuda.synchronize()
+    times["keccak256_blocks"] = (cuda_ms(lambda: K.launch_k10(kb, ka, out10), it, wu), start.elapsed_time(end))
+    act10 = int(ka.sum())
+    bounds["keccak256_blocks"] = ("operations", act10 * OPS_PER_KECCAK_BLOCK / INT32_OPS_PER_S,
+                                  (kb.numel() + ka.numel() * 4 + kb.shape[0] * 32) / HBM_BYTES_PER_S)
+    log(f"[14] K10 == plain on the long batch's {int((ka > 0).sum())} Keccak rows and on {N_SECP} rows "
+        f"of 0-300 B with stale bytes; == host Keccak on 64 of them")
+
+    for kind, (st, items, fused, recover) in stages.items():
+        rows = (st["qx"], st["qy"], st["q_valid"])
+        tail = (st["is_eth"], st["v"], st["is_rec"], st["addr"], gtab)
+        if fused:
+            hb = (st["sha_blocks"], st["sha_active"], st["kec_blocks"], st["kec_active"])
+        else:
+            e = sv.staged_e(st)
+        for glv in (True, False):
+            name = S.variant("secp_hash_verify" if fused else "secp_verify_batch", glv, recover)
+            if fused:
+                kern = lambda g=glv: S.hash_verify_batch(*hb, *rows, st["r"], st["s"], *tail, glv=g, recover=recover)
+                plain = lambda g=glv: S.hash_verify_batch_plain(*hb, *rows, st["r"], st["s"], *tail, glv=g,
+                                                                recover=recover)
+            else:
+                kern = lambda g=glv: S.verify_batch(*rows, e, st["r"], st["s"], *tail, glv=g, recover=recover)
+                plain = lambda g=glv: S.verify_batch_plain(*rows, e, st["r"], st["s"], *tail, glv=g,
+                                                           recover=recover)
+            got = kern()
+            start.record()
+            want = plain()
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            require(torch.equal(got, want), f"{name} != plain")
+            require(got[:N_SECP].tolist() == verdicts["secp_mixed" if recover and fused else
+                                                       "secp_no_ecrecover" if fused else
+                                                       "secp_long" if recover else
+                                                       "secp_long_no_ecrecover"],
+                    f"{name} != the path's verdicts")
+            results[name] = max_abs_err(got, want)
+            it, wu = SECP_TIMING["secp"]
+            times[name] = (cuda_ms(kern, it, wu), plain_ms)
+            work = [secp_row_work(x, glv, fused, mods) for x in items]
+            fm, mm, kbl, sbl = (sum(w[i] for w in work) for i in range(4))
+            ops = fm * OPS_PER_FIELD_MUL + mm * OPS_PER_MONT_MUL + kbl * OPS_PER_KECCAK_BLOCK + sbl * OPS_PER_SHA256_BLOCK
+            nbytes = N_SECP * (5 * 32 + 3 + 4 + 20 + 1) + (
+                st["sha_blocks"].numel() + st["kec_blocks"].numel() + 8 * N_SECP if fused else 0)
+            bounds[name] = ("operations", ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S)
+            log(f"[14] {name} == plain on all {N_SECP} rows (plain {plain_ms:.1f} ms, once, cold); "
+                f"{times[name][0]:.3f} ms; work: {fm} field and {mm} scalar multiplies, {kbl} Keccak "
+                f"and {sbl} SHA-256 blocks")
+
+    # ------------------------------------------------ 15. end to end
+    p50s, phases = {}, {}
+    for name, items, glv in (("secp_mixed", mixed, "1"), ("secp_mixed_shamir", mixed, "0"),
+                             ("secp_long", long_mixed, "1")):
+        os.environ["COMETBFT_TPU_SECP_GLV"] = glv
+        walls, ph = [], []
+        for _ in range(12):
+            bv = cbatch.create_batch_verifier("secp256k1", device=dev)
+            for x in items:
+                bv.add(*x)
+            t0 = time.perf_counter()
+            _, res = bv.verify()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            ph.append(dict(bv.last_timings))
+            require(res == verdicts[name], f"{name}: a timed call's verdicts moved")
+        p50s[name] = float(np.median(walls[2:]))
+        phases[name] = {k: float(np.median([p[k] for p in ph[2:]])) for k in ph[0]}
+    os.environ.pop("COMETBFT_TPU_SECP_GLV", None)
+    log(f"[15] SecpBatchVerifier.verify p50 over 10 calls after 2, {N_SECP} rows (ms): "
+        f"{json.dumps({k: round(v, 3) for k, v in p50s.items()})}; phases p50: "
+        + json.dumps({k: {a: round(b, 3) for a, b in v.items()} for k, v in phases.items()}))
+
+    src_secp = "cometbft_tpu_torch/csrc/secp.cu"
+    meta = {"keccak256_blocks": ("K10", "cometbft_tpu_torch/csrc/keccak.cu", "cometbft_tpu/ops/keccak.py:144",
+                                 ["keccak256_blocks"])}
+    rows_of = {
+        "secp_verify_batch": "secp256k1_verify_batch", "secp_verify_batch_recover": "secp256k1_verify_batch_recover",
+        "secp_verify_batch_noglv": "secp256k1_verify_batch_noglv",
+        "secp_verify_batch_noglv_recover": "secp256k1_verify_batch_noglv_recover",
+        "secp_hash_verify": "secp256k1_hash_verify", "secp_hash_verify_recover": "secp256k1_hash_verify_recover",
+    }
+    for name in S.LAUNCHES:
+        k12 = name.startswith("secp_hash_verify")
+        tag = ("K12" if k12 else "K11") + "<%d,%d>" % ("noglv" not in name, "recover" in name)
+        meta[name] = (tag, src_secp, "cometbft_tpu/ops/secp256k1.py:" + ("996" if k12 else "861"),
+                      [rows_of[name]] if name in rows_of else [])
+    record = {"secp_p50_ms": p50s, "secp_phases_p50_ms": phases, "secp_rows": N_SECP,
+              "secp_decode_cache": dict(sv.CACHE_STATS),
+              "secp_planted": len(planted), "secp_path_launches": path_counts}
+    return results, times, bounds, meta, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -189,7 +598,10 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     smi = smi_line()
     t_start = time.perf_counter()
-    counters = (sha2.LAUNCHES, comb.LAUNCHES, E.LAUNCHES, cv.LAUNCHES, Mk.LAUNCHES)
+    from cometbft_tpu_torch.ops import keccak as Kc
+    from cometbft_tpu_torch.ops import secp256k1 as Sp
+
+    counters = (sha2.LAUNCHES, comb.LAUNCHES, E.LAUNCHES, cv.LAUNCHES, Mk.LAUNCHES, Kc.LAUNCHES, Sp.LAUNCHES)
     path_launches = {}  # path -> launches read just after it
 
     def zero_counts():
@@ -914,7 +1326,13 @@ def main() -> int:
     lib9_ms = cuda_ms(lambda: torch.index_select(flat_p, 0, pc_flat, out=out9), it, wu)
     k8_top_ms = cuda_ms(lambda: Mk.merkle_level(flat_t, 0, N_LEAVES, offs_p[1]), 20, 2)
 
-    # ---------------------------------------------------- 12. the record
+    # ---------------------------------------------------- 12-15. the secp lane
+    secp_results, secp_t, secp_bound, secp_meta, secp_record = secp_phases(
+        dev, np.random.default_rng(SEED + 4), log, require, zero_counts, read_counts, cuda_ms, max_abs_err)
+    results.update(secp_results)
+    t.update(secp_t)
+
+    # ---------------------------------------------------- 16. the record
     # bounds from this run's shapes and data
     width = good_payload.shape[1]
     k5_ops = FIELD_MULS_PER_STRAUS * OPS_PER_FIELD_MUL + OPS_PER_SCALAR_REDUCE
@@ -975,9 +1393,13 @@ def main() -> int:
                           "cometbft_tpu/ops/merkle.py:117",
                           ["merkle_proofs_from_leaves", "merkle_multiproof_from_leaves"]),
     }
+    meta.update(secp_meta)
+    for name, (by, secs, other_secs) in secp_bound.items():
+        bound[name] = (by, secs)
+        other[name] = other_secs
     library = {"assemble_churn": lib6_ms, "merkle_gather": lib9_ms}
     total_launches = {k: sum(p[k] for p in path_launches.values()) for k in read_counts()}
-    log(f"[12] launches per path (each read just after the path): {json.dumps(path_launches)}")
+    log(f"[16] launches per path (each read just after the path): {json.dumps(path_launches)}")
     kernels = []
     for name in meta:
         tag, src_, rep, rows_ = meta[name]
@@ -998,17 +1420,21 @@ def main() -> int:
             rec.update(launches_per_tree=len(sizes_p), leaves=N_LEAVES, ms_top_level=k8_top_ms)
         kernels.append(rec)
         for key in (name, "verify_batch_256") if name == "verify_batch" else (name,):
-            it, wu, pit, pwu = TIMING[key]
+            if key in TIMING:
+                it, wu, pit, pwu = TIMING[key]
+            else:  # the secp lane: the plain versions once, cold
+                it, wu = SECP_TIMING["keccak256_blocks" if key == "keccak256_blocks" else "secp"]
+                pit, pwu = 1, 0
             ms, plain_ms = t[key]
             by, secs = bound[key]
             lib_note = f"; library {library[name]:.4f} ms" if name in library else ""
-            log(f"[12] {tag} {key}: {ms:.4f} ms over {it} launches after {wu} warm-up "
+            log(f"[16] {tag} {key}: {ms:.4f} ms over {it} launches after {wu} warm-up "
                 f"(plain {plain_ms:.2f} ms over {pit} after {pwu}); bound {secs * 1e3:.4f} ms by "
                 f"{by}, other side {other[key] * 1e3:.4f} ms{lib_note}; launches over the paths "
                 f"{total_launches[name]}")
     # a verify_commit launches K1, K2 and K4 once each
     device_ms = sum(t[n][0] for n in ("parse_verify_payload", "sha512_blocks", "verify_cached"))
-    log(f"[12] total {time.perf_counter() - t_start:.1f} s; verify_commit p50 {p50:.3f} ms, of which "
+    log(f"[16] total {time.perf_counter() - t_start:.1f} s; verify_commit p50 {p50:.3f} ms, of which "
         f"kernels {device_ms:.3f} ms ({100 * device_ms / p50:.2f}% device busy); table build "
         f"{cold_build_ms:.1f} ms cold, {warm_build_ms:.1f} ms warm, churn {churn_ms:.1f} ms "
         f"beside a verify_commit and {churn_solo_ms:.1f} ms alone, full build of the changed set "
@@ -1016,7 +1442,8 @@ def main() -> int:
         f"light-client p50 {p50_l:.2f} ms; at {V_MAIN} validators verify_adjacent p50 "
         f"{p50_light['light_adjacent']:.2f} ms, verify_non_adjacent {p50_light['light_non_adjacent']:.2f}, "
         f"ValidatorSet.hash {p50_light['valset_hash']:.2f}; {N_LEAVES} proofs p50 {p50_proofs:.2f} ms, "
-        f"multiproof {p50_multi:.2f} ms")
+        f"multiproof {p50_multi:.2f} ms; secp {N_SECP} rows p50 "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in secp_record["secp_p50_ms"].items()))
     log(smi)
     log(json.dumps({"kernels": kernels, "verify_commit_p50_ms": p50,
                     "verify_phases_p50_ms": phase_p50, "table_build_cold_ms": cold_build_ms,
@@ -1028,7 +1455,7 @@ def main() -> int:
                     "full_build_changed_set_ms": full_ms, "light_trusting_p50_ms": p50_l,
                     "light_10k_p50_ms": p50_light, "proofs_16k_p50_ms": p50_proofs,
                     "multiproof_16k_p50_ms": p50_multi, "multiproof_dedup": dedup,
-                    "host_proofs_16k_ms": host_proofs_ms}))
+                    "host_proofs_16k_ms": host_proofs_ms, **secp_record}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

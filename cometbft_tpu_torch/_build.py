@@ -61,6 +61,19 @@ SIGNATURES = {
         # flat, coord, out, k, nnodes, stream
         "k9_merkle_gather": [_P, _P, _P, _I, _I, _P],
     },
+    "keccak": {
+        # blocks, active, digest, n, nblocks, stream
+        "k10_keccak256_blocks": [_P, _P, _P, _I, _I, _P],
+    },
+    "secp": {
+        # qx, qy, q_valid, e, r, s, is_eth, v, is_rec, addr, gtab, out,
+        # n, glv, recover, stream
+        "k11_secp_verify": [_P] * 12 + [_I, _I, _I, _P],
+        # sha_blocks, sha_active, sha_nb, kec_blocks, kec_active, kec_nb,
+        # qx, qy, q_valid, r, s, is_eth, v, is_rec, addr, gtab, out,
+        # n, glv, recover, stream
+        "k12_secp_hash_verify": [_P, _P, _I, _P, _P, _I] + [_P] * 11 + [_I, _I, _I, _P],
+    },
 }
 
 

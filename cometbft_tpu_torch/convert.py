@@ -5,6 +5,11 @@ values — bytes, ints and tuples read off the JAX objects by the caller —
 so that both packages are fed the same chain without the port importing
 the JAX package.  Merkle leaves need nothing: both take lists of bytes.
 
+The secp lane (slice 4): the JAX package keeps 256-bit values as (B, 22)
+int32 12-bit limbs and its G window table as (16, 66) Jacobian
+Montgomery limbs (R = 2^264); the port keeps (B, 8) int32 words and a
+(2, 8, 2, 8) affine table of G and phi(G) (ops/secp256k1.py).
+
 The JAX package keeps comb tables as (64, 9, 3, 22, V) int32 frozen
 12-bit limbs (entry 0 is the identity), the B table as (22, 66, 4096)
 float32 limbs for its MXU one-hot select, and the Straus B window as
@@ -23,6 +28,7 @@ from ._device import resolve_device
 from .crypto import ed25519
 from .models.comb_verifier import _CacheEntry
 from .ops import comb
+from .ops import secp256k1 as secp
 from .types import block as B
 from .types.light_block import SignedHeader
 from .types.validators import Validator, ValidatorSet
@@ -106,6 +112,42 @@ def tables_from_jax(tables, valid, pubs, device="cuda", b_tables=None) -> _Cache
         comb.b_tables(dev) if b_tables is None else b_tables,
         index,
     )
+
+
+def _jax_limbs_to_ints(limbs: np.ndarray) -> list[int]:
+    """(B, L) 12-bit limbs (least significant first) -> ints."""
+    out = []
+    for row in np.asarray(limbs).astype(np.int64):
+        val = 0
+        for limb in row[::-1].tolist():
+            val = (val << _JAX_BITS) + int(limb)
+        out.append(val)
+    return out
+
+
+def words_from_jax_limbs(limbs: np.ndarray) -> np.ndarray:
+    """JAX (B, 22) int32 plain 12-bit limbs (cometbft_tpu/ops/secp256k1.py
+    ints_to_limbs_np; values < 2^256) -> the port's (B, 8) int32 words."""
+    return secp.ints_to_words_np(_jax_limbs_to_ints(limbs))
+
+
+def g_table_from_jax(g_table: np.ndarray, device="cuda") -> torch.Tensor:
+    """JAX (16, 66) int32 G window table (entry j = j G as Jacobian
+    Montgomery limbs, R = 2^264) -> the port's (2, 8, 2, 8) int32 table of
+    [G, phi(G)][j = 1..8][x, y] affine words on ``device``."""
+    dev = resolve_device(device)
+    p = secp.P
+    rinv = pow(1 << (_JAX_LIMBS * _JAX_BITS), p - 2, p)
+    g = np.asarray(g_table)
+    out = np.zeros((2, 8, 2, 8), dtype=np.uint32)
+    for j in range(1, 9):
+        X, Y, Z = (v * rinv % p for v in _jax_limbs_to_ints(g[j].reshape(3, _JAX_LIMBS)))
+        zi = pow(Z, p - 2, p)
+        x, y = X * zi * zi % p, Y * zi * zi * zi % p
+        for t, xv in enumerate((x, secp.BETA * x % p)):
+            out[t, j - 1, 0] = secp.ints_to_words_np([xv])[0].view(np.uint32)
+            out[t, j - 1, 1] = secp.ints_to_words_np([y])[0].view(np.uint32)
+    return torch.from_numpy(out.view(np.int32).copy()).to(dev)
 
 
 # ------------------------------------------------------------ chain state

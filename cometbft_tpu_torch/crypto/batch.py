@@ -8,45 +8,42 @@ pubkeys binds to its comb tables on the card when it has at least
 through a background build at or above it, verifying uncached until the
 tables land.  Smaller sets and calls without pubkeys take the uncached
 verifier.  Both thresholds read the JAX package's environment variables
-with its defaults, so the two packages route alike.
+with its defaults, so the two packages route alike.  The secp key types
+(``secp256k1``, ``secp256k1eth`` and ``ecrecover``, the CheckTx wire
+shapes of verifysvc/checktx.py) all take the batched ECDSA verifier,
+models/secp_verifier.SecpBatchVerifier, as the JAX package's
+MODE_SECP lane does (cometbft_tpu/verifysvc/service.mode_for_key_type).
 """
 
 from __future__ import annotations
 
-import os
-
+from .. import envknobs
 from .._device import resolve_device
 from ..models.comb_verifier import CombBatchVerifier, global_cache
+from ..models.secp_verifier import SecpBatchVerifier
 from ..models.verifier import Ed25519BatchVerifier
-from . import ed25519
+from . import ed25519, secp256k1, secp256k1eth
 
-
-def _env_int(name: str, default: int) -> int:
-    """cometbft_tpu/utils/envknobs.get_int: an unset, empty or malformed
-    value gives the default."""
-    try:
-        return int(os.environ.get(name, ""))
-    except ValueError:
-        return default
+SECP_KEY_TYPES = (secp256k1.KEY_TYPE, secp256k1eth.KEY_TYPE, secp256k1eth.RECOVER_KEY_TYPE)
 
 
 def comb_min() -> int:
     """Smallest validator set that binds to comb tables
     (COMETBFT_TPU_COMB_MIN, default 512)."""
-    return _env_int("COMETBFT_TPU_COMB_MIN", 512)
+    return envknobs.get_int("COMETBFT_TPU_COMB_MIN", 512)
 
 
 def comb_async_min() -> int:
     """Set size at or above which missing tables build in the background
     while verification runs uncached (COMETBFT_TPU_COMB_ASYNC_MIN,
     default 2048)."""
-    return _env_int("COMETBFT_TPU_COMB_ASYNC_MIN", 2048)
+    return envknobs.get_int("COMETBFT_TPU_COMB_ASYNC_MIN", 2048)
 
 
 def supports_batch_verifier(key_type: str) -> bool:
-    """ed25519 batches on the card; the other key types' lanes
-    (bls12_381, secp256k1) are later slices of the port."""
-    return key_type == ed25519.KEY_TYPE
+    """ed25519 and the three secp key types batch on the card; the BLS
+    lane (bls12_381) is a later slice of the port."""
+    return key_type == ed25519.KEY_TYPE or key_type in SECP_KEY_TYPES
 
 
 def create_batch_verifier(
@@ -59,10 +56,13 @@ def create_batch_verifier(
     """(crypto/batch/batch.go:10)  A batch verifier on ``device`` for the
     validator set ``pubkeys`` (in set order): a CombBatchVerifier bound
     to the set's tables in ``comb_cache`` (default: the process-wide
-    cache) where the routing above allows, else an Ed25519BatchVerifier."""
+    cache) where the routing above allows, else an Ed25519BatchVerifier;
+    a SecpBatchVerifier for the secp key types."""
     if not supports_batch_verifier(key_type):
         raise ValueError(f"no batch verifier for key type {key_type!r}")
     dev = resolve_device(device)
+    if key_type in SECP_KEY_TYPES:
+        return SecpBatchVerifier(device=dev)  # rows carry their own keys
     if pubkeys is None or len(pubkeys) < comb_min():
         return Ed25519BatchVerifier(device=dev)
     cache = global_cache() if comb_cache is None else comb_cache

@@ -26,37 +26,28 @@ package's environment variables with its defaults
 from __future__ import annotations
 
 import hashlib
-import os
 import struct
 import threading
 from collections import OrderedDict
 
+from .. import envknobs
 from .._device import resolve_device
 from ..crypto import merkle as cmerkle
 
 _INDEX_WIDTH = 8  # query index wire width (big-endian, unsigned)
 
 
-def _env_int(name: str, default: int) -> int:
-    """An unset, empty or malformed value gives the default
-    (cometbft_tpu/utils/envknobs.get_int)."""
-    try:
-        return int(os.environ.get(name, ""))
-    except ValueError:
-        return default
-
-
 def proof_device_min() -> int:
     """Fewest coalesced queries against one tree that go to the card
     (COMETBFT_TPU_PROOF_DEVICE_MIN, default 64); fewer are answered on
     the host."""
-    return _env_int("COMETBFT_TPU_PROOF_DEVICE_MIN", 64)
+    return envknobs.get_int("COMETBFT_TPU_PROOF_DEVICE_MIN", 64)
 
 
 def proof_tree_cache() -> int:
     """Entries of the digest -> leaves tree cache
     (COMETBFT_TPU_PROOF_TREE_CACHE, default 256)."""
-    return _env_int("COMETBFT_TPU_PROOF_TREE_CACHE", 256)
+    return envknobs.get_int("COMETBFT_TPU_PROOF_TREE_CACHE", 256)
 
 
 # ------------------------------------------------------------ tree cache

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K9 against their plain versions on the card
+"""The CUDA kernels K1-K12 against their plain versions on the card
 (marker ``cuda``: these skip where no CUDA device is present; run them
 on the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``).
 Small shapes; chip_smoke.py holds the kernels at the main path's."""
@@ -231,3 +231,80 @@ def test_device_proof_routes_match_host(dev):
     r2, p2, dedup = cm.device_multiproof(leaves, idx, device=dev)
     assert r1 == r2 == root == cm.hash_from_byte_slices(leaves, device=dev)
     assert p1 == p2 == [proofs[i] for i in idx] and dedup > 1
+
+
+def test_k10_matches_plain_and_host(dev):
+    """K10 on 300 rows of 1-3 active blocks, lengths 0-300 with 135-137,
+    stale bytes past each row's last block."""
+    from cometbft_tpu_torch.crypto.keccak import keccak256
+    from cometbft_tpu_torch.ops import keccak as K
+
+    rng = np.random.default_rng(14)
+    lens = [0, 1, 135, 136, 137, 271, 272, 300] + rng.integers(0, 301, size=292).tolist()
+    msgs = [rng.bytes(n) for n in lens]
+    blocks, active = K.pad_messages_keccak(msgs)
+    blocks = blocks.copy()
+    for i, a in enumerate(active.tolist()):
+        blocks[i, a:] = rng.integers(0, 256, size=(blocks.shape[1] - a, K.RATE), dtype=np.uint8)
+    b, a = torch.from_numpy(blocks).to(dev), torch.from_numpy(active).to(dev)
+    got = K.keccak256_blocks(b, a)
+    assert torch.equal(got, K.keccak256_blocks_plain(b, a))
+    assert [bytes(r) for r in got.cpu().numpy()] == [keccak256(m) for m in msgs]
+
+
+@pytest.fixture(scope="module")
+def secp_case():
+    from torch_secp_corpus import corpus
+
+    from cometbft_tpu_torch.models import secp_verifier as sv
+
+    rows = corpus(b"cuda")
+    items = [r[:3] for r in rows]
+    return items, [sv._host_verify_one(*it) for it in items]
+
+
+@pytest.mark.parametrize("glv", [True, False])
+@pytest.mark.parametrize("hash_dev", [True, False])
+def test_k11_k12_match_plain_and_host_oracle(dev, secp_case, glv, hash_dev):
+    """K11 and K12 in every instantiation against their plain versions
+    and the host oracle on the adversarial corpus; the verify-only
+    instantiation on the rows without ecrecover."""
+    from cometbft_tpu_torch.models import secp_verifier as sv
+    from cometbft_tpu_torch.ops import secp256k1 as S
+
+    items, expect = secp_case
+    for recover in (True, False):
+        keep = [i for i, it in enumerate(items) if recover or len(it[0]) != sv.ECR_PUB]
+        sub = [items[i] for i in keep]
+        st = sv.stage_batch(sub, dev, hash_dev, 119)
+        gtab = S.g_table(dev)
+        rows = (st["qx"], st["qy"], st["q_valid"])
+        tail = (st["is_eth"], st["v"], st["is_rec"], st["addr"], gtab)
+        if hash_dev:
+            blocks = (st["sha_blocks"], st["sha_active"], st["kec_blocks"], st["kec_active"])
+            got = S.hash_verify_batch(*blocks, *rows, st["r"], st["s"], *tail, glv=glv, recover=recover)
+            want = S.hash_verify_batch_plain(*blocks, *rows, st["r"], st["s"], *tail, glv=glv, recover=recover)
+        else:
+            e = sv.staged_e(st)  # K10 for the Keccak rows
+            got = S.verify_batch(*rows, e, st["r"], st["s"], *tail, glv=glv, recover=recover)
+            want = S.verify_batch_plain(*rows, e, st["r"], st["s"], *tail, glv=glv, recover=recover)
+        assert torch.equal(got, want)
+        assert got[: len(sub)].tolist() == [expect[i] for i in keep]
+
+
+def test_secp_batch_verifier_takes_each_route(dev, secp_case, monkeypatch):
+    from cometbft_tpu_torch.models import secp_verifier as sv
+    from cometbft_tpu_torch.ops import secp256k1 as S
+
+    items, expect = secp_case
+    monkeypatch.setenv("COMETBFT_TPU_SECP_HASH_DEVICE_MIN", "1")
+    for glv in ("1", "0"):
+        monkeypatch.setenv("COMETBFT_TPU_SECP_GLV", glv)
+        before = dict(S.LAUNCHES)
+        bv = sv.SecpBatchVerifier(device=dev)
+        for it in items:
+            bv.add(*it)
+        ok, res = bv.verify()
+        assert res == expect and not ok
+        name = S.variant("secp_hash_verify", glv == "1", True)
+        assert S.LAUNCHES[name] == before[name] + 1

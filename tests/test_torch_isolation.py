@@ -141,3 +141,34 @@ def test_validator_set_hash_and_prover_raise_without_card(no_card):
         [v.bytes() for v in vals.validators], device=False)
     with pytest.raises(NoCudaDevice):
         proof_server.ProofProver()
+
+
+def test_secp_entry_points_raise_without_card(no_card):
+    from cometbft_tpu_torch import convert
+    from cometbft_tpu_torch._device import NoCudaDevice
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.models import secp_verifier as sv
+    from cometbft_tpu_torch.ops import keccak
+
+    with pytest.raises(NoCudaDevice):
+        sv.SecpBatchVerifier()
+    for kt in ("secp256k1", "secp256k1eth", "ecrecover"):
+        with pytest.raises(NoCudaDevice):
+            batch.create_batch_verifier(kt)
+    with pytest.raises(NoCudaDevice):
+        keccak.keccak256_device([b""])
+    with pytest.raises(NoCudaDevice):
+        convert.g_table_from_jax(np.zeros((16, 66), np.int32))
+
+
+def test_secp_wrappers_refuse_other_devices(no_card):
+    from cometbft_tpu_torch.ops import secp256k1 as S
+
+    m = "meta"
+    w = torch.zeros((2, 8), dtype=torch.int32, device=m)
+    f = torch.zeros((2,), dtype=torch.uint8, device=m)
+    v = torch.zeros((2,), dtype=torch.int32, device=m)
+    a = torch.zeros((2, 20), dtype=torch.uint8, device=m)
+    g = torch.zeros((2, 8, 2, 8), dtype=torch.int32, device=m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        S.verify_batch(w, w, f, w, w, w, f, v, f, a, g)

@@ -118,3 +118,28 @@ def test_verify_commit_across_the_async_window(monkeypatch):
             validation.verify_commit("c", vals, bid, 3, faulted, device="cpu", comb_cache=cache)
         cache.join_async()
         assert len(cache._entries) == 1
+
+
+@pytest.mark.parametrize("kt", ["secp256k1", "secp256k1eth", "ecrecover"])
+def test_secp_key_types_route_to_the_ecdsa_lane(kt, monkeypatch):
+    """The three CheckTx secp wire shapes take SecpBatchVerifier; a
+    2-row batch (under the JAX class's COMETBFT_TPU_SECP_DEVICE_MIN)
+    still takes the card's route, here its plain version."""
+    from cometbft_tpu_torch.crypto import secp256k1 as sh
+    from cometbft_tpu_torch.crypto import secp256k1eth as eh
+    from cometbft_tpu_torch.models.secp_verifier import SecpBatchVerifier
+
+    assert batch.supports_batch_verifier(kt)
+    bv = batch.create_batch_verifier(kt, device="cpu")
+    assert isinstance(bv, SecpBatchVerifier)
+    sk = {"secp256k1": sh.PrivKey, "secp256k1eth": eh.PrivKey, "ecrecover": eh.RecoverPrivKey}[kt].from_seed(kt.encode())
+    bv.add(sk.pub_key().data, b"m", sk.sign(b"m"))
+    bv.add(sk.pub_key().data, b"m!", sk.sign(b"m"))
+    assert bv.verify() == (False, [True, False])
+    assert bv.last_timings["rows"] == 2.0
+
+
+def test_bls_is_not_yet_a_batch_key_type():
+    assert not batch.supports_batch_verifier("bls12_381")
+    with pytest.raises(ValueError):
+        batch.create_batch_verifier("bls12_381", device="cpu")
