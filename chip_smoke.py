@@ -5,8 +5,9 @@ validator-set change with its background churn build, a light-client
 trusting check on 150 validators, the comb verifier's demotion, the
 light client's header checks at 10,000 validators (validator-set hash on
 the Merkle kernels, then the commit), batched Merkle proof serving over
-a 16,384-leaf tree, and the secp256k1 ECDSA lane on a 4,096-transaction
-CheckTx batch of the Cosmos, Ethereum and ecrecover wire shapes — on one
+a 16,384-leaf tree, the secp256k1 ECDSA lane on a 4,096-transaction
+CheckTx batch of the Cosmos, Ethereum and ecrecover wire shapes, and the
+BLS12-381 lane on a 10,000-validator aggregate commit — on one
 NVIDIA card, holds each kernel against its plain PyTorch version, and
 prints the card's numbers.
 
@@ -69,7 +70,22 @@ it and read just after it.
      versions on every row, their times, and the work each spent (the
      bound's operation count, per row from the run's data);
  15. SecpBatchVerifier.verify p50 over 10 calls with last_timings;
- 16. one JSON line with every kernel, then the contract line.
+ 16. BLS inputs: 10,000 keys whose secrets run a + i b (mod r) from the
+     seed (a Jacobian add a key), the aggregate signature (sum sk) H(m),
+     checked on 8 keys against PrivKey and aggregate_signatures; planted
+     keys of every bad class;
+ 17. the 10,000-row aggregate commit through crypto/batch.
+     create_batch_verifier("bls12_381"): cold (K15 + K14's finishing
+     stage), warm p50 with last_timings (K14), a forged aggregate
+     signature (one pairing), the planted batch (K15) with its verdicts
+     against the host oracle on the planted and 256 sampled rows;
+ 18. 64 individually signed rows (K13, one 65-pair product), and one
+     forged row blamed alone;
+ 19. types/validation.verify_commit over a 512-validator BLS set, cold
+     (K15) and warm (K14), a tampered commit refused;
+ 20. K13-K15 against their plain versions on all 10,000 rows (byte-exact
+     ok bytes and triples), their times and the work of the run's data;
+ 21. one JSON line with every kernel, then the contract line.
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
@@ -572,6 +588,371 @@ def secp_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_a
     return results, times, bounds, meta, record
 
 
+# ---------------------------------------------------------------- BLS lane
+# The BLS12-381 lane (K13-K15): a 10,000-validator aggregate commit (the
+# main path's set width and bench.py's metric of record), 64 individually
+# signed rows, and verify_commit over a 512-validator BLS set.  Keys are
+# secrets in a progression sk_i = a + i b (mod r) from the seed, so that
+# pk_i = pk_(i-1) + b G is one Jacobian add a key (the host signer's
+# ~9 ms a key would take 90 s); the aggregate signature is (sum sk_i)
+# H(m), one G2 multiply.  The kernels' work does not depend on the keys'
+# discrete logarithms.
+N_BLS = 10_000
+N_BLS_SINGLES = 64
+V_BLS_COMMIT = 512  # >= COMETBFT_TPU_BLS_AGG_DEVICE_MIN: the warm call reaches K14
+N_BLS_ORACLE_SAMPLE = 256
+BLS_WARM_CALLS = 7  # p50 over the last 5
+# planted keys (phase 16): wrong subgroup, x >= p, the infinity encoding, off-curve x
+BLS_PLANTED = {17: "wrong subgroup", 4_242: "x >= p", 7_777: "infinity", 9_998: "off-curve x"}
+BLS_TIMING = {"validate_g1": (5, 1), "validate_aggregate_g1": (5, 1), "aggregate_g1": (20, 2)}
+# field multiplies (csrc/bls381.cuh): doubling 7, mixed add 11, general add
+# 16, the on-curve check 3; a CIOS multiply is 288 32x32->64 multiply-adds
+FM_BLS_DBL, FM_BLS_MADD, FM_BLS_ADD, FM_BLS_CURVE = 7, 11, 16, 3
+OPS_PER_BLS_MUL = 288 * 4
+
+
+def bls_keys(H, a: int, b: int, n: int):
+    """Affine public keys of the secrets a + i b, i < n: a Jacobian add a
+    key, the Z's inverted together (Montgomery's trick)."""
+    F, P = H._FP, H.P
+    step = H._jac_mul(F, H._from_affine(F, H.G1_GEN), b)
+    acc, jac = H._jac_mul(F, H._from_affine(F, H.G1_GEN), a), []
+    for _ in range(n):
+        jac.append(acc)
+        acc = H._jac_add(F, acc, step)
+    pre = [1]
+    for _, _, z in jac:
+        pre.append(pre[-1] * z % P)
+    inv, out = pow(pre[-1], P - 2, P), [None] * n
+    for i in range(n - 1, -1, -1):
+        zi, inv = inv * pre[i] % P, inv * jac[i][2] % P
+        z2 = zi * zi % P
+        out[i] = (jac[i][0] * z2 % P, jac[i][1] * z2 * zi % P)
+    return out
+
+
+def bls_g2_mul(H, q, k: int):
+    return H._to_affine(H._FP2, H._jac_mul(H._FP2, H._from_affine(H._FP2, q), k))
+
+
+def bls_tree_work(live: list[bool], TILE: int, FINISH: int) -> int:
+    """General adds of K14's stages with both operands non-identity, for
+    rows whose identity flags are ``not live`` (an add with an identity
+    operand copies the other point)."""
+    def tree(flags):
+        adds, s = 0, len(flags) // 2
+        flags = list(flags)
+        while s >= 1:
+            for t in range(s):
+                adds += flags[t] and flags[t + s]
+                flags[t] = flags[t] or flags[t + s]
+            s //= 2
+        return adds, flags[0]
+    n = len(live)
+    g = -(-n // TILE)
+    adds, parts = 0, []
+    for b in range(g):
+        tile = live[b * TILE:(b + 1) * TILE]
+        a, f = tree(tile + [False] * (TILE - len(tile)))
+        adds += a
+        parts.append(f)
+    lanes = [False] * FINISH
+    for j, f in enumerate(parts):
+        adds += lanes[j % FINISH] and f
+        lanes[j % FINISH] = lanes[j % FINISH] or f
+    return adds + tree(lanes)[0]
+
+
+def bls_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_abs_err):
+    """Phases 16-20 of main(): the BLS lane.  Returns (results, times,
+    bounds, meta, record) for the kernels JSON line."""
+    from cometbft_tpu_torch import types as T
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.crypto import bls12381 as H
+    from cometbft_tpu_torch.crypto import merkle as cmerkle
+    from cometbft_tpu_torch.models import bls_verifier as M
+    from cometbft_tpu_torch.ops import bls381 as B
+    from cometbft_tpu_torch.types import validation
+    from cometbft_tpu_torch.wire.canonical import PRECOMMIT_TYPE, Timestamp
+
+    P, R = H.P, H.R
+    names = list(B.LAUNCHES)
+    pairings = {"n": 0}
+    real_pairing = H._pairings_product_is_one
+
+    def counted_pairing(pairs):
+        pairings["n"] += 1
+        return real_pairing(pairs)
+
+    H._pairings_product_is_one = counted_pairing
+    t_lane = time.perf_counter()
+
+    # ------------------------------------------------ 16. inputs
+    t0 = time.perf_counter()
+    a, b = (int.from_bytes(rng.bytes(32), "big") % R for _ in range(2))
+    affs = bls_keys(H, a, b, N_BLS)
+    pubs = [H._g1_compress(p) for p in affs]
+    bid = T.BlockID(hash=rng.bytes(32), part_set_header=T.PartSetHeader(total=1, hash=rng.bytes(32)))
+    msg = T.Vote(type=PRECOMMIT_TYPE, height=77, round=0, block_id=bid,
+                 timestamp=Timestamp(seconds=TS_SECONDS)).sign_bytes(CHAIN_ID)
+    hm = H.hash_to_g2(msg)
+    sk_sum = (a * N_BLS + b * N_BLS * (N_BLS - 1) // 2) % R
+    agg = H._g2_compress(bls_g2_mul(H, hm, sk_sum))
+    t_inputs = time.perf_counter() - t0
+    # the shortcut against the host signer on the first 8 keys
+    first = [H.PrivKey((a + i * b) % R) for i in range(8)]
+    require([k.pub_key().data for k in first] == pubs[:8], "progression keys != PrivKey.pub_key")
+    require(H.aggregate_signatures([k.sign(msg) for k in first])
+            == H._g2_compress(bls_g2_mul(H, hm, sum(k._sk for k in first) % R)),
+            "aggregate_signatures of 8 signatures != (sum sk) H(m)")
+    # planted keys (tests/test_bls_verify.py recipes)
+    x = 1
+    while True:
+        y = H._fp_sqrt((x ** 3 + 4) % P)
+        if y is not None and not H._in_subgroup(H._FP, (x, y)):
+            break
+        x += 1
+    x_off = 5
+    while H._fp_sqrt((x_off ** 3 + 4) % P) is not None:
+        x_off += 1
+    bad = {"wrong subgroup": H._g1_compress((x, y)), "x >= p": bytes([0x9F]) + b"\xff" * 47,
+           "infinity": bytes([0xC0]) + b"\x00" * 47,
+           "off-curve x": bytes([0x80 | (x_off >> 376)]) + x_off.to_bytes(48, "big")[1:]}
+    planted_pubs = list(pubs)
+    for i, label in BLS_PLANTED.items():
+        planted_pubs[i] = bad[label]
+    log(f"[16] BLS inputs: {N_BLS} keys (secrets a + i b from the seed) and the aggregate signature "
+        f"in {t_inputs:.2f} s; the first 8 keys == PrivKey.pub_key and their aggregate_signatures == "
+        f"(sum sk) H(m) byte for byte; sign-bytes {len(msg)} B; planted {BLS_PLANTED}; pairing core "
+        f"{os.path.relpath(H._native_pairing_lib()._name)}")
+
+    # ------------------------------------------------ 17. the aggregate commit
+    path_counts, timings, walls = {}, {}, {}
+
+    def drive(name, items, want_ok, want_launch, want_pairings=None, calls=1):
+        """``calls`` verifies of ``items``, each through a new verifier
+        from the factory, the counts zeroed before the first and read
+        after the last -> [(wall ms, last_timings)] per call."""
+        zero_counts()
+        out = []
+        for _ in range(calls):
+            pairings["n"] = 0
+            bv = cbatch.create_batch_verifier("bls12_381", pubkeys=[p for p, _, _ in items], device=dev)
+            require(isinstance(bv, M.BlsAggregateVerifier), f"{name}: factory gave {type(bv).__name__}")
+            for it in items:
+                bv.add(*it)
+            t0 = time.perf_counter()
+            ok, res = bv.verify()
+            out.append(((time.perf_counter() - t0) * 1e3, dict(bv.last_timings)))
+            require((ok, res) == want_ok, f"{name}: verdicts ({ok}, {sum(res)} rows True) != expected")
+            if want_pairings is not None:
+                require(pairings["n"] == want_pairings, f"{name}: {pairings['n']} pairings")
+        got = read_counts(name)
+        path_counts[name] = {k: got[k] for k in names}
+        want = dict(dict.fromkeys(names, 0), **{k: v * calls for k, v in want_launch.items()})
+        require(path_counts[name] == want, f"{name}: launches {path_counts[name]} != {want}")
+        return out if calls > 1 else out[0]
+
+    commit_items = [(p, msg, agg) for p in pubs]
+    M.reset_caches()
+    walls["cold"], timings["cold"] = drive("bls_commit_cold", commit_items, (True, [True] * N_BLS),
+                                           {"validate_aggregate_g1": 1, "aggregate_g1_finish": 1}, 1)
+    warm = drive("bls_commit_warm", commit_items, (True, [True] * N_BLS),
+                 {"aggregate_g1": 1, "aggregate_g1_finish": 1}, 1, calls=BLS_WARM_CALLS)
+    walls["warm"] = float(np.median([w for w, _ in warm[2:]]))
+    timings["warm"] = {key: float(np.median([t[key] for _, t in warm[2:]])) for key in warm[2][1]}
+    forged = H._g2_compress(bls_g2_mul(H, hm, (sk_sum + 1) % R))
+    walls["forged"], timings["forged"] = drive(
+        "bls_commit_forged", [(p, msg, forged) for p in pubs], (False, [False] * N_BLS),
+        {"aggregate_g1": 1, "aggregate_g1_finish": 1}, 1)
+    M.reset_caches()
+    walls["planted"], timings["planted"] = drive(
+        "bls_commit_planted", [(p, msg, agg) for p in planted_pubs], (False, [False] * N_BLS),
+        {"validate_aggregate_g1": 1, "aggregate_g1_finish": 1}, 0)
+    # K15's verdicts, as the fact cache holds them, against the host oracle
+    pool = [i for i in range(N_BLS) if i not in BLS_PLANTED]
+    sample = sorted(set(BLS_PLANTED) | set(rng.choice(pool, N_BLS_ORACLE_SAMPLE, replace=False).tolist()))
+    cache = M._pk_cache()
+
+    def host_ok(pub):
+        aff = M._decode_pub(pub)
+        return aff is not None and H._on_curve(H._FP, aff) and H._in_subgroup(H._FP, aff)
+
+    oracle = [host_ok(planted_pubs[i]) for i in sample]
+    require([cache.get(planted_pubs[i]) is not None for i in sample] == oracle,
+            "K15's verdicts (the fact cache) != host oracle")
+    require(sum(oracle) == len(sample) - len(BLS_PLANTED), "the oracle passed a planted key")
+    log(f"[17] aggregate commit of {N_BLS} through crypto/batch.create_batch_verifier: cold "
+        f"{walls['cold']:.1f} ms {json.dumps({k: round(v, 2) for k, v in timings['cold'].items()})}; warm p50 "
+        f"{walls['warm']:.2f} ms over {BLS_WARM_CALLS - 2} calls after 2 "
+        f"{json.dumps({k: round(v, 2) for k, v in timings['warm'].items()})}; forged aggregate: every row "
+        f"False after one pairing ({walls['forged']:.1f} ms); planted batch: every row False, K15's "
+        f"verdicts == host oracle on {len(sample)} rows ({len(BLS_PLANTED)} planted)")
+
+    # ------------------------------------------------ 18. 64 individually signed rows
+    a2, b2 = (int.from_bytes(rng.bytes(32), "big") % R for _ in range(2))
+    msg2 = b"cometbft-tpu-torch smoke: individually signed rows"
+    hm2 = H.hash_to_g2(msg2)
+    s_jac = H._from_affine(H._FP2, bls_g2_mul(H, hm2, a2))
+    s_step = H._from_affine(H._FP2, bls_g2_mul(H, hm2, b2))
+    singles, spubs = [], [H._g1_compress(p) for p in bls_keys(H, a2, b2, N_BLS_SINGLES)]
+    for j in range(N_BLS_SINGLES):
+        singles.append((spubs[j], msg2, H._g2_compress(H._to_affine(H._FP2, s_jac))))
+        s_jac = H._jac_add(H._FP2, s_jac, s_step)
+    require(singles[1][2] == H.PrivKey((a2 + b2) % R).sign(msg2), "progression signature != PrivKey.sign")
+    walls["singles"], timings["singles"] = drive(
+        "bls_singles", singles, (True, [True] * N_BLS_SINGLES), {"validate_g1": 1}, 1)
+    forged_row = N_BLS_SINGLES // 4
+    bad_singles = list(singles)
+    # another message's aggregate signature: a valid point no other row carries
+    bad_singles[forged_row] = (singles[forged_row][0], msg2, agg)
+    walls["singles_forged"], _ = drive(
+        "bls_singles_forged", bad_singles,
+        (False, [j != forged_row for j in range(N_BLS_SINGLES)]), {}, 1 + N_BLS_SINGLES)
+    log(f"[18] {N_BLS_SINGLES} individually signed rows ({N_BLS_SINGLES} units, keys outside the set): K13 once, one "
+        f"{N_BLS_SINGLES + 1}-pair product, {walls['singles']:.1f} ms "
+        f"{json.dumps({k: round(v, 2) for k, v in timings['singles'].items()})}; one forged row: only its "
+        f"unit False ({walls['singles_forged']:.1f} ms, {N_BLS_SINGLES + 1} pairings)")
+
+    # ------------------------------------------------ 19. verify_commit over a BLS set
+    t0 = time.perf_counter()
+    a3, b3 = (int.from_bytes(rng.bytes(32), "big") % R for _ in range(2))
+    vpubs = [H._g1_compress(p) for p in bls_keys(H, a3, b3, V_BLS_COMMIT)]
+    vals = T.ValidatorSet([T.Validator(H.PubKey(p), 10) for p in vpubs])  # the host subgroup check per key
+    t_set = time.perf_counter() - t0
+    height = 88
+    cbid = T.BlockID(hash=rng.bytes(32), part_set_header=T.PartSetHeader(total=1, hash=rng.bytes(32)))
+    ts = Timestamp(seconds=TS_SECONDS)  # one timestamp: identical sign-bytes on every row
+    sbs = {T.Vote(type=PRECOMMIT_TYPE, height=height, round=0, block_id=cbid, timestamp=ts,
+                  validator_address=v.address, validator_index=i).sign_bytes(CHAIN_ID)
+           for i, v in enumerate(vals.validators)}
+    require(len(sbs) == 1, "the commit's sign-bytes differ between rows")
+    (sb,) = sbs
+    agg3 = H._g2_compress(bls_g2_mul(H, H.hash_to_g2(sb),
+                                     (a3 * V_BLS_COMMIT + b3 * V_BLS_COMMIT * (V_BLS_COMMIT - 1) // 2) % R))
+    commit = T.Commit(height=height, round=0, block_id=cbid, signatures=[
+        T.CommitSig(2, v.address, ts, agg3) for v in vals.validators])
+    vhash = vals.hash(device=dev)  # K7 + K8, outside the counted windows
+    require(vhash == cmerkle.hash_from_byte_slices([v.bytes() for v in vals.validators], device=False),
+            "the BLS set's hash != hashlib's")
+    vc = {}
+    M.reset_caches()
+    for name, want in (("bls_verify_commit_cold", {"validate_aggregate_g1": 1, "aggregate_g1_finish": 1}),
+                       ("bls_verify_commit_warm", {"aggregate_g1": 1, "aggregate_g1_finish": 1})):
+        zero_counts()
+        t0 = time.perf_counter()
+        validation.verify_commit(CHAIN_ID, vals, cbid, height, commit, device=dev)
+        vc[name] = (time.perf_counter() - t0) * 1e3
+        got = read_counts(name)
+        path_counts[name] = {k: got[k] for k in names}
+        require(path_counts[name] == dict(dict.fromkeys(names, 0), **want),
+                f"{name}: launches {path_counts[name]} != {want}")
+    tampered_sigs = list(commit.signatures)
+    k_t = V_BLS_COMMIT // 4 + 9
+    cs = tampered_sigs[k_t]
+    tampered_sigs[k_t] = T.CommitSig(2, cs.validator_address, cs.timestamp, singles[0][2])
+    tampered = T.Commit(height=height, round=0, block_id=cbid, signatures=tampered_sigs)
+    try:
+        validation.verify_commit(CHAIN_ID, vals, cbid, height, tampered, device=dev)
+    except validation.CommitVerificationError as e:
+        blame = str(e)
+    else:
+        raise AssertionError("the tampered BLS commit verified")
+    # the tampered row's unit and the 511-row unit both fail: blame on #0
+    require(blame.startswith("wrong signature (#0): "), f"blame {blame[:40]!r}")
+    log(f"[19] verify_commit over a {V_BLS_COMMIT}-validator BLS set (PubKey checks {t_set:.1f} s): "
+        f"ValidatorSet.hash {vhash.hex()}; cold {vc['bls_verify_commit_cold']:.1f} ms (K15), warm "
+        f"{vc['bls_verify_commit_warm']:.1f} ms (K14); tampered row {k_t}: {blame[:40]}...")
+
+    # ------------------------------------------------ 20. parity and times
+    results, times, bounds = {}, {}, {}
+    decoded = [M._decode_pub(p) for p in planted_pubs]
+    X, Y, valid = B.pack_affine(decoded)
+    Xd, Yd, vd = (torch.from_numpy(t_).to(dev) for t_ in (X, Y, valid))
+    vd8 = vd.to(torch.uint8)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def plain_timed(fn):
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    ok13 = B.validate_g1(Xd, Yd, vd)
+    p13, plain13 = plain_timed(lambda: B.validate_g1_plain(Xd, Yd, vd))
+    require(torch.equal(ok13, p13), "K13 != plain")
+    require([bool(ok13[i]) for i in sample] == oracle, "K13 != host oracle")
+    results["validate_g1"] = max_abs_err(ok13, p13)
+    k15 = B.validate_aggregate_g1(Xd, Yd, vd)
+    p15, plain15 = plain_timed(lambda: B.validate_aggregate_g1_plain(Xd, Yd, vd))
+    require(all(torch.equal(g, w) for g, w in zip(k15, p15)), "K15 != plain")
+    require(torch.equal(k15[0], ok13), "K15's verdicts != K13's")
+    results["validate_aggregate_g1"] = max(max_abs_err(g, w) for g, w in zip(k15, p15))
+    live = ok13.tolist()
+    acc = (1, 1, 0)
+    for aff, o in zip(decoded, live):
+        if o:
+            acc = H._jac_add(H._FP, acc, H._from_affine(H._FP, aff))
+    host_sum = H._to_affine(H._FP, acc)
+    require(B.jac_to_affine_host(*(t_.cpu() for t_ in k15[1:])) == host_sum, "K15's sum != host sum")
+    Zd = torch.from_numpy(np.broadcast_to(B.ints_to_words_np([B.ONE_M]), (N_BLS, B.NWORDS)).copy()).to(dev)
+    Xk, Yk = (torch.from_numpy(t_).to(dev) for t_ in B.pack_affine(affs)[:2])
+    k14 = B.aggregate_g1(Xk, Yk, Zd)
+    p14, plain14 = plain_timed(lambda: B.aggregate_g1_plain(Xk, Yk, Zd))
+    require(all(torch.equal(g, w) for g, w in zip(k14, p14)), "K14 != plain")
+    results["aggregate_g1"] = max(max_abs_err(g, w) for g, w in zip(k14, p14))
+    acc = (1, 1, 0)
+    for aff in affs:
+        acc = H._jac_add(H._FP, acc, H._from_affine(H._FP, aff))
+    require(B.jac_to_affine_host(*(t_.cpu() for t_ in k14)) == H._to_affine(H._FP, acc), "K14's sum != host sum")
+    log(f"[20] K13, K15 == plain on all {N_BLS} planted rows (ok bytes and the triple word for word), K13 "
+        f"== host oracle on {len(sample)} rows, K15's sum == the host sum of the {sum(live)} valid rows; "
+        f"K14 == plain on the {N_BLS} keys, its sum == the host sum; plain ms (once, cold): K13 "
+        f"{plain13:.1f}, K15 {plain15:.1f}, K14 {plain14:.1f}")
+
+    ok_b = torch.empty((N_BLS,), dtype=torch.uint8, device=dev)
+    all_b = torch.ones((1,), dtype=torch.uint8, device=dev)
+    part = B._scratch(N_BLS, dev)
+    tri = torch.empty((B.PT_WORDS,), dtype=torch.int32, device=dev)
+    it, wu = BLS_TIMING["validate_g1"]
+    times["validate_g1"] = (cuda_ms(lambda: B.launch_k13(Xd, Yd, vd8, ok_b, all_b), it, wu), plain13)
+    it, wu = BLS_TIMING["validate_aggregate_g1"]
+    times["validate_aggregate_g1"] = (
+        cuda_ms(lambda: B.launch_k15(Xd, Yd, vd8, ok_b, all_b, part, tri), it, wu), plain15)
+    it, wu = BLS_TIMING["aggregate_g1"]
+    times["aggregate_g1"] = (cuda_ms(lambda: B.launch_k14(Xk, Yk, Zd, part, tri), it, wu), plain14)
+    g = -(-N_BLS // B.TILE)
+    finish_ms = cuda_ms(lambda: B._launch_finish(part, g, tri), it, wu)
+    # the work of this run's data (bls381.cuh's branches)
+    on_curve_rows = sum(1 for d in decoded if d is not None)  # the decoded rows reach the on-curve check
+    ladder_muls = (R.bit_length() - 1) * FM_BLS_DBL + (bin(R).count("1") - 1) * FM_BLS_MADD
+    rows_ladder = sum(1 for d in decoded if d is not None and H._on_curve(H._FP, d))
+    fm13 = on_curve_rows * FM_BLS_CURVE + rows_ladder * ladder_muls
+    fm15 = fm13 + bls_tree_work(live, B.TILE, B.FINISH) * FM_BLS_ADD
+    fm14 = bls_tree_work([True] * N_BLS, B.TILE, B.FINISH) * FM_BLS_ADD
+    in13 = N_BLS * (2 * 48 + 1)
+    for name, fm, nbytes in (("validate_g1", fm13, in13 + N_BLS + 1),
+                             ("validate_aggregate_g1", fm15, in13 + N_BLS + 1 + 144),
+                             ("aggregate_g1", fm14, N_BLS * 144 + 144)):
+        bounds[name] = ("operations", fm * OPS_PER_BLS_MUL / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S)
+        how = (f"both launches, the finishing stage alone {finish_ms:.4f} ms" if name == "aggregate_g1"
+               else f"{rows_ladder} rows through the ladder of {ladder_muls} multiplies")
+        log(f"[20] {name}: {times[name][0]:.4f} ms ({how}); work {fm} field multiplies")
+    H._pairings_product_is_one = real_pairing
+
+    src = "cometbft_tpu_torch/csrc/bls.cu"
+    meta = {
+        "validate_g1": ("K13", src, "cometbft_tpu/ops/bls381.py:346", ["bls381_validate_g1"]),
+        "aggregate_g1": ("K14", src, "cometbft_tpu/ops/bls381.py:273", ["bls381_aggregate_g1"]),
+        "validate_aggregate_g1": ("K15", src, "cometbft_tpu/ops/bls381.py:365", ["bls381_validate_aggregate_g1"]),
+    }
+    record = {"bls_rows": N_BLS, "bls_commit_ms": walls, "bls_phases_ms": timings,
+              "bls_verify_commit_512_ms": vc, "bls_path_launches": path_counts,
+              "bls_k14_finish_ms": finish_ms, "bls_lane_s": time.perf_counter() - t_lane}
+    return results, times, bounds, meta, record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -599,9 +980,11 @@ def main() -> int:
     smi = smi_line()
     t_start = time.perf_counter()
     from cometbft_tpu_torch.ops import keccak as Kc
+    from cometbft_tpu_torch.ops import bls381 as Bl
     from cometbft_tpu_torch.ops import secp256k1 as Sp
 
-    counters = (sha2.LAUNCHES, comb.LAUNCHES, E.LAUNCHES, cv.LAUNCHES, Mk.LAUNCHES, Kc.LAUNCHES, Sp.LAUNCHES)
+    counters = (sha2.LAUNCHES, comb.LAUNCHES, E.LAUNCHES, cv.LAUNCHES, Mk.LAUNCHES, Kc.LAUNCHES, Sp.LAUNCHES,
+                Bl.LAUNCHES)
     path_launches = {}  # path -> launches read just after it
 
     def zero_counts():
@@ -1332,7 +1715,13 @@ def main() -> int:
     results.update(secp_results)
     t.update(secp_t)
 
-    # ---------------------------------------------------- 16. the record
+    # ---------------------------------------------------- 16-20. the BLS lane
+    bls_results, bls_t, bls_bound, bls_meta, bls_record = bls_phases(
+        dev, np.random.default_rng(SEED + 5), log, require, zero_counts, read_counts, cuda_ms, max_abs_err)
+    results.update(bls_results)
+    t.update(bls_t)
+
+    # ---------------------------------------------------- 21. the record
     # bounds from this run's shapes and data
     width = good_payload.shape[1]
     k5_ops = FIELD_MULS_PER_STRAUS * OPS_PER_FIELD_MUL + OPS_PER_SCALAR_REDUCE
@@ -1394,12 +1783,13 @@ def main() -> int:
                           ["merkle_proofs_from_leaves", "merkle_multiproof_from_leaves"]),
     }
     meta.update(secp_meta)
-    for name, (by, secs, other_secs) in secp_bound.items():
+    meta.update(bls_meta)
+    for name, (by, secs, other_secs) in {**secp_bound, **bls_bound}.items():
         bound[name] = (by, secs)
         other[name] = other_secs
     library = {"assemble_churn": lib6_ms, "merkle_gather": lib9_ms}
     total_launches = {k: sum(p[k] for p in path_launches.values()) for k in read_counts()}
-    log(f"[16] launches per path (each read just after the path): {json.dumps(path_launches)}")
+    log(f"[21] launches per path (each read just after the path): {json.dumps(path_launches)}")
     kernels = []
     for name in meta:
         tag, src_, rep, rows_ = meta[name]
@@ -1418,23 +1808,28 @@ def main() -> int:
                        bound_ms_256=bound["verify_batch_256"][1] * 1e3)
         if name == "merkle_level":  # ms, plain_ms and bound_ms are for one whole tree
             rec.update(launches_per_tree=len(sizes_p), leaves=N_LEAVES, ms_top_level=k8_top_ms)
+        if name == "aggregate_g1":  # ms and bound_ms cover both stages; launches count the tile stage
+            rec.update(finish_launches=total_launches["aggregate_g1_finish"],
+                       finish_ms=bls_record["bls_k14_finish_ms"], rows=N_BLS)
         kernels.append(rec)
         for key in (name, "verify_batch_256") if name == "verify_batch" else (name,):
             if key in TIMING:
                 it, wu, pit, pwu = TIMING[key]
+            elif key in BLS_TIMING:  # the plain versions once, cold
+                (it, wu), pit, pwu = BLS_TIMING[key], 1, 0
             else:  # the secp lane: the plain versions once, cold
                 it, wu = SECP_TIMING["keccak256_blocks" if key == "keccak256_blocks" else "secp"]
                 pit, pwu = 1, 0
             ms, plain_ms = t[key]
             by, secs = bound[key]
             lib_note = f"; library {library[name]:.4f} ms" if name in library else ""
-            log(f"[16] {tag} {key}: {ms:.4f} ms over {it} launches after {wu} warm-up "
+            log(f"[21] {tag} {key}: {ms:.4f} ms over {it} launches after {wu} warm-up "
                 f"(plain {plain_ms:.2f} ms over {pit} after {pwu}); bound {secs * 1e3:.4f} ms by "
                 f"{by}, other side {other[key] * 1e3:.4f} ms{lib_note}; launches over the paths "
                 f"{total_launches[name]}")
     # a verify_commit launches K1, K2 and K4 once each
     device_ms = sum(t[n][0] for n in ("parse_verify_payload", "sha512_blocks", "verify_cached"))
-    log(f"[16] total {time.perf_counter() - t_start:.1f} s; verify_commit p50 {p50:.3f} ms, of which "
+    log(f"[21] total {time.perf_counter() - t_start:.1f} s; verify_commit p50 {p50:.3f} ms, of which "
         f"kernels {device_ms:.3f} ms ({100 * device_ms / p50:.2f}% device busy); table build "
         f"{cold_build_ms:.1f} ms cold, {warm_build_ms:.1f} ms warm, churn {churn_ms:.1f} ms "
         f"beside a verify_commit and {churn_solo_ms:.1f} ms alone, full build of the changed set "
@@ -1443,7 +1838,9 @@ def main() -> int:
         f"{p50_light['light_adjacent']:.2f} ms, verify_non_adjacent {p50_light['light_non_adjacent']:.2f}, "
         f"ValidatorSet.hash {p50_light['valset_hash']:.2f}; {N_LEAVES} proofs p50 {p50_proofs:.2f} ms, "
         f"multiproof {p50_multi:.2f} ms; secp {N_SECP} rows p50 "
-        + ", ".join(f"{k} {v:.2f} ms" for k, v in secp_record["secp_p50_ms"].items()))
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in secp_record["secp_p50_ms"].items())
+        + f"; BLS aggregate commit of {N_BLS}: cold {bls_record['bls_commit_ms']['cold']:.1f} ms, warm p50 "
+        f"{bls_record['bls_commit_ms']['warm']:.2f} ms; BLS lane {bls_record['bls_lane_s']:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels, "verify_commit_p50_ms": p50,
                     "verify_phases_p50_ms": phase_p50, "table_build_cold_ms": cold_build_ms,
@@ -1455,7 +1852,7 @@ def main() -> int:
                     "full_build_changed_set_ms": full_ms, "light_trusting_p50_ms": p50_l,
                     "light_10k_p50_ms": p50_light, "proofs_16k_p50_ms": p50_proofs,
                     "multiproof_16k_p50_ms": p50_multi, "multiproof_dedup": dedup,
-                    "host_proofs_16k_ms": host_proofs_ms, **secp_record}))
+                    "host_proofs_16k_ms": host_proofs_ms, **secp_record, **bls_record}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

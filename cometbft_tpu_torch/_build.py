@@ -1,5 +1,6 @@
 """Build and load the CUDA kernels: ``nvcc`` into shared libraries with a
-plain C interface, loaded with ``ctypes``.
+plain C interface, loaded with ``ctypes``; and the host libraries of
+``hostsrc/`` (``g++``, :func:`host_lib`).
 
 Each ``csrc/*.cu`` source builds into its own ``build/cuda/lib<name>-<hash>.so``,
 all sources compiling in parallel (one ``nvcc`` process each), at first
@@ -24,6 +25,9 @@ import time
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "cuda")
+HOSTSRC = os.path.join(_PKG, "hostsrc")
+HOST_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "host")
+HOST_FLAGS = ["-O2", "-fPIC", "-std=c++17", "-shared"]
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -73,6 +77,16 @@ SIGNATURES = {
         # qx, qy, q_valid, r, s, is_eth, v, is_rec, addr, gtab, out,
         # n, glv, recover, stream
         "k12_secp_hash_verify": [_P, _P, _I, _P, _P, _I] + [_P] * 11 + [_I, _I, _I, _P],
+    },
+    "bls": {
+        # X, Y, valid, ok, all_ok, n, stream
+        "k13_bls_validate": [_P] * 5 + [_I, _P],
+        # X, Y, Z, partials, n, stream
+        "k14_bls_aggregate": [_P] * 4 + [_I, _P],
+        # partials, g, out, stream
+        "k14_bls_aggregate_finish": [_P, _I, _P, _P],
+        # X, Y, valid, ok, all_ok, partials, n, stream
+        "k15_bls_validate_aggregate": [_P] * 6 + [_I, _P],
     },
 }
 
@@ -159,6 +173,39 @@ def build_all(names=None) -> dict[str, ctypes.CDLL]:
 
 def lib(name: str) -> ctypes.CDLL:
     return build_all([name])[name]
+
+
+_HOST_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def host_lib(name: str) -> ctypes.CDLL:
+    """Build (if stale) and load ``hostsrc/<name>.cc`` with the host C++
+    compiler (``$CXX``, default g++) into
+    ``build/host/lib<name>-<source hash>.so``.  A failed build or load
+    raises :class:`BuildError`."""
+    with _LOCK:
+        if name in _HOST_LIBS:
+            return _HOST_LIBS[name]
+        src = os.path.join(HOSTSRC, f"{name}.cc")
+        with open(src, "rb") as f:
+            h = hashlib.sha256(f.read() + " ".join(HOST_FLAGS).encode()).hexdigest()[:16]
+        out = os.path.join(HOST_BUILD_DIR, f"lib{name}-{h}.so")
+        try:
+            if not os.path.exists(out):
+                os.makedirs(HOST_BUILD_DIR, exist_ok=True)
+                tmp = f"{out}.{os.getpid()}.tmp"
+                cmd = [os.environ.get("CXX", "g++"), *HOST_FLAGS, "-o", tmp, src]
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise BuildError(f"{name}.cc (exit {proc.returncode}):\n{proc.stderr}")
+                os.replace(tmp, out)
+            lib_ = ctypes.CDLL(out)
+        except BuildError:
+            raise
+        except Exception as e:  # noqa: BLE001 — no compiler, or an unloadable library
+            raise BuildError(f"host library {name}: {e}") from e
+        _HOST_LIBS[name] = lib_
+        return lib_
 
 
 def check(code: int, what: str) -> None:

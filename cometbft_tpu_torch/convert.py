@@ -10,6 +10,11 @@ int32 12-bit limbs and its G window table as (16, 66) Jacobian
 Montgomery limbs (R = 2^264); the port keeps (B, 8) int32 words and a
 (2, 8, 2, 8) affine table of G and phi(G) (ops/secp256k1.py).
 
+The BLS lane (slice 5): the JAX package keeps a field element as (B, 32)
+int32 12-bit limbs of its Montgomery form with R = 2^384; the port keeps
+(B, 12) int32 words of the same number (ops/bls381.py), so the two carry
+across by a bit repack (``bls_words_from_jax_limbs`` and its inverse).
+
 The JAX package keeps comb tables as (64, 9, 3, 22, V) int32 frozen
 12-bit limbs (entry 0 is the identity), the B table as (22, 66, 4096)
 float32 limbs for its MXU one-hot select, and the Straus B window as
@@ -25,8 +30,9 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .crypto import ed25519
+from .crypto import bls12381, ed25519, secp256k1, secp256k1eth
 from .models.comb_verifier import _CacheEntry
+from .ops import bls381 as bls
 from .ops import comb
 from .ops import secp256k1 as secp
 from .types import block as B
@@ -131,6 +137,34 @@ def words_from_jax_limbs(limbs: np.ndarray) -> np.ndarray:
     return secp.ints_to_words_np(_jax_limbs_to_ints(limbs))
 
 
+def bls_words_from_jax_limbs(limbs: np.ndarray) -> np.ndarray:
+    """JAX (..., 32) int32 12-bit limbs (cometbft_tpu/ops/bls381.py; the
+    Montgomery form, R = 2^384) -> the port's (..., 12) int32 words of
+    the same number."""
+    a = np.asarray(limbs).astype(np.int64)
+    w = np.zeros(a.shape[:-1] + (bls.NWORDS,), dtype=np.int64)
+    for k in range(32):
+        bit = 12 * k
+        w[..., bit // 32] |= (a[..., k] << (bit % 32)) & 0xFFFFFFFF
+        if bit % 32 > 20:  # the limb straddles two words
+            w[..., bit // 32 + 1] |= a[..., k] >> (32 - bit % 32)
+    return w.astype(np.uint32).view(np.int32)
+
+
+def jax_limbs_from_bls_words(words) -> np.ndarray:
+    """The inverse of bls_words_from_jax_limbs: (..., 12) int32 words ->
+    (..., 32) int32 12-bit limbs."""
+    w = np.asarray(words.cpu() if isinstance(words, torch.Tensor) else words).astype(np.int64) & 0xFFFFFFFF
+    out = np.zeros(w.shape[:-1] + (32,), dtype=np.int64)
+    for k in range(32):
+        bit = 12 * k
+        v = w[..., bit // 32] >> (bit % 32)
+        if bit % 32 > 20:
+            v = v | (w[..., bit // 32 + 1] << (32 - bit % 32))
+        out[..., k] = v & 0xFFF
+    return out.astype(np.int32)
+
+
 def g_table_from_jax(g_table: np.ndarray, device="cuda") -> torch.Tensor:
     """JAX (16, 66) int32 G window table (entry j = j G as Jacobian
     Montgomery limbs, R = 2^264) -> the port's (2, 8, 2, 8) int32 table of
@@ -153,10 +187,18 @@ def g_table_from_jax(g_table: np.ndarray, device="cuda") -> torch.Tensor:
 # ------------------------------------------------------------ chain state
 
 
-def validator_set(entries) -> ValidatorSet:
-    """[(ed25519 pubkey bytes, voting power), ...] -> the port's
+_PUBKEYS = {
+    ed25519.KEY_TYPE: ed25519.PubKey,
+    secp256k1.KEY_TYPE: secp256k1.PubKey,
+    secp256k1eth.KEY_TYPE: secp256k1eth.PubKey,
+    bls12381.KEY_TYPE: bls12381.PubKey,
+}
+
+
+def validator_set(entries, key_type: str = ed25519.KEY_TYPE) -> ValidatorSet:
+    """[(pubkey bytes, voting power), ...] of one key type -> the port's
     ValidatorSet (sorted as the reference sorts it)."""
-    return ValidatorSet([Validator(ed25519.PubKey(bytes(pk)), int(p)) for pk, p in entries])
+    return ValidatorSet([Validator(_PUBKEYS[key_type](bytes(pk)), int(p)) for pk, p in entries])
 
 
 def block_id(fields) -> B.BlockID:

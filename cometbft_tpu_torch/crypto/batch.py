@@ -13,16 +13,20 @@ with its defaults, so the two packages route alike.  The secp key types
 shapes of verifysvc/checktx.py) all take the batched ECDSA verifier,
 models/secp_verifier.SecpBatchVerifier, as the JAX package's
 MODE_SECP lane does (cometbft_tpu/verifysvc/service.mode_for_key_type).
+The BLS key type (``bls12_381``) takes the aggregate verifier,
+models/bls_verifier.BlsAggregateVerifier, as the JAX package's MODE_BLS
+lane does.
 """
 
 from __future__ import annotations
 
 from .. import envknobs
 from .._device import resolve_device
+from ..models.bls_verifier import BlsAggregateVerifier
 from ..models.comb_verifier import CombBatchVerifier, global_cache
 from ..models.secp_verifier import SecpBatchVerifier
 from ..models.verifier import Ed25519BatchVerifier
-from . import ed25519, secp256k1, secp256k1eth
+from . import bls12381, ed25519, secp256k1, secp256k1eth
 
 SECP_KEY_TYPES = (secp256k1.KEY_TYPE, secp256k1eth.KEY_TYPE, secp256k1eth.RECOVER_KEY_TYPE)
 
@@ -41,9 +45,8 @@ def comb_async_min() -> int:
 
 
 def supports_batch_verifier(key_type: str) -> bool:
-    """ed25519 and the three secp key types batch on the card; the BLS
-    lane (bls12_381) is a later slice of the port."""
-    return key_type == ed25519.KEY_TYPE or key_type in SECP_KEY_TYPES
+    """ed25519, the three secp key types and bls12_381 batch on the card."""
+    return key_type in (ed25519.KEY_TYPE, bls12381.KEY_TYPE) or key_type in SECP_KEY_TYPES
 
 
 def create_batch_verifier(
@@ -57,12 +60,15 @@ def create_batch_verifier(
     validator set ``pubkeys`` (in set order): a CombBatchVerifier bound
     to the set's tables in ``comb_cache`` (default: the process-wide
     cache) where the routing above allows, else an Ed25519BatchVerifier;
-    a SecpBatchVerifier for the secp key types."""
+    a SecpBatchVerifier for the secp key types; a BlsAggregateVerifier
+    for bls12_381."""
     if not supports_batch_verifier(key_type):
         raise ValueError(f"no batch verifier for key type {key_type!r}")
     dev = resolve_device(device)
     if key_type in SECP_KEY_TYPES:
         return SecpBatchVerifier(device=dev)  # rows carry their own keys
+    if key_type == bls12381.KEY_TYPE:
+        return BlsAggregateVerifier(device=dev)  # per-key facts are cached per process
     if pubkeys is None or len(pubkeys) < comb_min():
         return Ed25519BatchVerifier(device=dev)
     cache = global_cache() if comb_cache is None else comb_cache

@@ -13,6 +13,13 @@ from ..wire.types import PublicKey, SimpleValidator
 
 MAX_INT64 = (1 << 63) - 1
 MAX_TOTAL_VOTING_POWER = MAX_INT64 // 8
+# key type -> its field of the PublicKey oneof (wire/types.PublicKey)
+_PROTO_ARM = {
+    "ed25519": "ed25519",
+    "secp256k1": "secp256k1",
+    "bls12_381": "bls12381",
+    "secp256k1eth": "secp256k1eth",
+}
 
 
 class Validator:
@@ -29,12 +36,13 @@ class Validator:
 
     def bytes(self) -> bytes:
         """SimpleValidator proto encoding — the hashing form
-        (types/validator.go Validator.Bytes).  The port carries ed25519
-        keys only."""
-        if self.pub_key.type != "ed25519":
+        (types/validator.go Validator.Bytes): the key in its PublicKey
+        arm (crypto/encoding.go PubKeyToProto)."""
+        arm = _PROTO_ARM.get(self.pub_key.type)
+        if arm is None:
             raise ValueError(f"key type {self.pub_key.type!r} not supported")
         sv = SimpleValidator(
-            pub_key=PublicKey(ed25519=self.pub_key.bytes()),
+            pub_key=PublicKey(**{arm: self.pub_key.bytes()}),
             voting_power=self.voting_power,
         )
         return sv.encode()

@@ -41,10 +41,15 @@ class Consensus(Message):
 
 
 class PublicKey(Message):
-    """cometbft.crypto.v1.PublicKey: a oneof over key types, of which the
-    port carries the ed25519 arm."""
+    """cometbft.crypto.v1.PublicKey: a oneof over key types; at most one
+    of the fields is non-empty."""
 
-    FIELDS = [Field(1, "ed25519", "bytes")]
+    FIELDS = [
+        Field(1, "ed25519", "bytes"),
+        Field(2, "secp256k1", "bytes"),
+        Field(3, "bls12381", "bytes"),
+        Field(4, "secp256k1eth", "bytes"),
+    ]
 
 
 # -------------------------------------------------------- types/v1

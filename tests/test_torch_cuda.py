@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K12 against their plain versions on the card
+"""The CUDA kernels K1-K15 against their plain versions on the card
 (marker ``cuda``: these skip where no CUDA device is present; run them
 on the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``).
 Small shapes; chip_smoke.py holds the kernels at the main path's."""
@@ -308,3 +308,131 @@ def test_secp_batch_verifier_takes_each_route(dev, secp_case, monkeypatch):
         assert res == expect and not ok
         name = S.variant("secp_hash_verify", glv == "1", True)
         assert S.LAUNCHES[name] == before[name] + 1
+
+
+def _bls_points(n, seed):
+    """n subgroup points a + i b (times G), affine, by one Jacobian add a
+    point and one batched inversion."""
+    from cometbft_tpu_torch.crypto import bls12381 as H
+
+    F, P = H._FP, H.P
+    rng = np.random.default_rng(seed)
+    a, b = int(rng.integers(2, 1 << 62)), int(rng.integers(2, 1 << 62))
+    step = H._jac_mul(F, H._from_affine(F, H.G1_GEN), b)
+    acc, jac = H._jac_mul(F, H._from_affine(F, H.G1_GEN), a), []
+    for _ in range(n):
+        jac.append(acc)
+        acc = H._jac_add(F, acc, step)
+    out = []
+    for X, Y, Z in jac:
+        zi = pow(Z, P - 2, P)
+        out.append((X * zi * zi % P, Y * zi * zi * zi % P))
+    return out
+
+
+@pytest.fixture(scope="module")
+def bls_case():
+    from cometbft_tpu_torch.crypto import bls12381 as H
+
+    P = H.P
+    rows = _bls_points(70, 13)
+    x = 1
+    while True:
+        y = H._fp_sqrt((x ** 3 + 4) % P)
+        if y is not None and not H._in_subgroup(H._FP, (x, y)):
+            break
+        x += 1
+    rows[3], rows[10], rows[20] = (x, y), None, (5, 6)  # wrong subgroup, host-rejected, off curve
+    rows[30] = rows[31]  # a repeated key: the tree's doubling
+    return rows
+
+
+def test_k13_k15_match_plain_and_host(dev, bls_case):
+    """K13 and K15 (+ K14's finishing stage) on 70 rows (a ragged tile)
+    with every bad class and a non-canonical x: ok bytes equal the plain
+    versions' and the host oracle's, the triple the plain version's word
+    for word and the host sum as an affine point."""
+    from cometbft_tpu_torch.crypto import bls12381 as H
+    from cometbft_tpu_torch.ops import bls381 as B
+
+    rows = bls_case
+    X, Y, valid = B.pack_affine(rows)
+    X[40] = B.ints_to_words_np([B.P + 5])[0]  # x >= p, flagged valid
+    want = [r is not None and i != 40 and H._on_curve(H._FP, r) and H._in_subgroup(H._FP, r)
+            for i, r in enumerate(rows)]
+    Xd, Yd, vd = (torch.from_numpy(a).to(dev) for a in (X, Y, valid))
+    ok = B.validate_g1(Xd, Yd, vd)
+    assert torch.equal(ok, B.validate_g1_plain(Xd, Yd, vd)) and ok.tolist() == want
+    got = B.validate_aggregate_g1(Xd, Yd, vd)
+    plain = B.validate_aggregate_g1_plain(Xd, Yd, vd)
+    assert all(torch.equal(g, p) for g, p in zip(got, plain))
+    acc = (1, 1, 0)
+    for r, o in zip(rows, want):
+        if o:
+            acc = H._jac_add(H._FP, acc, H._from_affine(H._FP, r))
+    assert B.jac_to_affine_host(*(t.cpu() for t in got[1:])) == H._to_affine(H._FP, acc)
+
+
+@pytest.mark.parametrize("n", [1, 33, 8200])
+def test_k14_matches_plain_and_host(dev, n):
+    """K14 at 1 row, a tile and a row, and 257 tile partials (the
+    finishing stage's fold), with identity rows and a point beside its
+    negation, at random Z."""
+    from cometbft_tpu_torch.crypto import bls12381 as H
+    from cometbft_tpu_torch.ops import bls381 as B
+
+    P = B.P
+    rng = np.random.default_rng(n)
+    pts = _bls_points(n, n)
+    if n > 1:
+        pts[1] = None
+        pts[min(16, n - 1)] = (pts[0][0], P - pts[0][1])
+    cols = ([], [], [])
+    for a in pts:
+        z = int.from_bytes(rng.bytes(48), "big") % P
+        X, Y, Z = (1, 1, 0) if a is None else (a[0] * z * z % P, a[1] * z ** 3 % P, z)
+        for c, v in zip(cols, (X, Y, Z)):
+            c.append(B.to_mont(v))
+    Xd, Yd, Zd = (torch.from_numpy(B.ints_to_words_np(c)).to(dev) for c in cols)
+    got = B.aggregate_g1(Xd, Yd, Zd)
+    assert all(torch.equal(g, p) for g, p in zip(got, B.aggregate_g1_plain(Xd, Yd, Zd)))
+    acc = (1, 1, 0)
+    for a in pts:
+        acc = H._jac_add(H._FP, acc, H._from_affine(H._FP, a))
+    assert B.jac_to_affine_host(*(t.cpu() for t in got)) == H._to_affine(H._FP, acc)
+
+
+def test_bls_verifier_takes_each_route(dev, monkeypatch):
+    """An aggregate commit cold (K15 + K14's finishing stage), warm (K14)
+    and singleton rows (K13), verdicts equal to the host verifier's."""
+    from cometbft_tpu_torch.crypto import bls12381 as H
+    from cometbft_tpu_torch.models import bls_verifier as M
+    from cometbft_tpu_torch.ops import bls381 as B
+
+    monkeypatch.setenv("COMETBFT_TPU_BLS_AGG_DEVICE_MIN", "2")
+    keys = [H.PrivKey(3 + 2 * i) for i in range(9)]
+    msg = b"cuda-agg"
+    agg = H.aggregate_signatures([k.sign(msg) for k in keys])
+    commit = [(k.pub_key().data, msg, agg) for k in keys]
+    solo = [(k.pub_key().data, b"m%d" % i, k.sign(b"m%d" % i)) for i, k in enumerate(keys)]
+    solo[4] = (solo[4][0], solo[4][1], keys[5].sign(solo[4][1]))
+    M.reset_caches()
+    for items, want in ((commit, {"validate_aggregate_g1": 1, "aggregate_g1_finish": 1}),
+                        (commit, {"aggregate_g1": 1, "aggregate_g1_finish": 1})):
+        before = dict(B.LAUNCHES)
+        bv = M.BlsAggregateVerifier(device=dev)
+        for it in items:
+            bv.add(*it)
+        assert bv.verify() == (True, [True] * 9)
+        assert {k: B.LAUNCHES[k] - before[k] for k in B.LAUNCHES} == dict(dict.fromkeys(B.LAUNCHES, 0), **want)
+    M.reset_caches()
+    before = dict(B.LAUNCHES)
+    bv = M.BlsAggregateVerifier(device=dev)
+    for it in solo:
+        bv.add(*it)
+    cpu = M.CpuBlsBatchVerifier()
+    for it in solo:
+        cpu.add(*it)
+    M.reset_caches()
+    assert bv.verify() == cpu.verify() == (False, [i != 4 for i in range(9)])
+    assert B.LAUNCHES["validate_g1"] == before["validate_g1"] + 1

@@ -172,3 +172,37 @@ def test_secp_wrappers_refuse_other_devices(no_card):
     g = torch.zeros((2, 8, 2, 8), dtype=torch.int32, device=m)
     with pytest.raises(ValueError, match="unsupported device"):
         S.verify_batch(w, w, f, w, w, w, f, v, f, a, g)
+
+
+def test_bls_entry_points_raise_without_card(no_card, monkeypatch):
+    from cometbft_tpu_torch._device import NoCudaDevice
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.crypto import bls12381 as H
+    from cometbft_tpu_torch.models import bls_verifier as bv
+    from cometbft_tpu_torch.ops import bls381 as B
+
+    with pytest.raises(NoCudaDevice):
+        bv.BlsAggregateVerifier()
+    with pytest.raises(NoCudaDevice):
+        batch.create_batch_verifier("bls12_381", pubkeys=[b"\x80" * 48])
+    pt = [H.G1_GEN]
+    for route in (B.validate_pubkeys_device, B.validate_aggregate_device, B.aggregate_pubkeys_device):
+        with pytest.raises(NoCudaDevice):
+            route(pt)
+    keys = [H.PrivKey(3 + i) for i in range(8)]
+    monkeypatch.setenv("COMETBFT_TPU_BLS_DEVICE", "1")
+    with pytest.raises(NoCudaDevice):  # the pubkey sum goes to K14 on the card
+        H.fast_aggregate_verify([k.pub_key() for k in keys], b"m", b"\x00" * 96)
+
+
+def test_bls_wrappers_refuse_other_devices(no_card):
+    from cometbft_tpu_torch.ops import bls381 as B
+
+    w = torch.zeros((2, 12), dtype=torch.int32, device="meta")
+    f = torch.zeros((2,), dtype=torch.uint8, device="meta")
+    for call in (lambda: B.validate_g1(w, w, f), lambda: B.aggregate_g1(w, w, w),
+                 lambda: B.validate_aggregate_g1(w, w, f)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+    with pytest.raises(ValueError, match="must be"):
+        B.validate_g1(w[:, :8], w[:, :8], f)

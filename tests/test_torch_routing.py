@@ -140,6 +140,12 @@ def test_secp_key_types_route_to_the_ecdsa_lane(kt, monkeypatch):
 
 
 def test_bls_is_not_yet_a_batch_key_type():
-    assert not batch.supports_batch_verifier("bls12_381")
+    """Port slice 5 made bls12_381 a batch key type: it gets the
+    aggregate verifier; a key type the port does not know is refused."""
+    from cometbft_tpu_torch.models.bls_verifier import BlsAggregateVerifier
+
+    assert batch.supports_batch_verifier("bls12_381")
+    assert isinstance(batch.create_batch_verifier("bls12_381", device="cpu"), BlsAggregateVerifier)
+    assert not batch.supports_batch_verifier("sr25519")
     with pytest.raises(ValueError):
-        batch.create_batch_verifier("bls12_381", device="cpu")
+        batch.create_batch_verifier("sr25519", device="cpu")

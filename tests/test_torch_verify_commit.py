@@ -146,8 +146,9 @@ def test_submit_collect_seam():
 def test_create_batch_verifier_without_pubkeys_names_the_straus_slice():
     """Without pubkeys the factory returns the uncached (Straus) verifier,
     whose per-signature verdicts equal the JAX package's factory verifier
-    and the host oracle; a key type without a port lane (bls12_381) is
-    refused, and secp256k1 takes the ECDSA lane (port slice 4)."""
+    and the host oracle; a key type without a port lane is refused,
+    secp256k1 takes the ECDSA lane (port slice 4) and bls12_381 the
+    aggregate verifier (port slice 5)."""
     from cometbft_tpu.crypto import batch as jbatch
     from cometbft_tpu.crypto import _ref25519 as jref
 
@@ -168,8 +169,12 @@ def test_create_batch_verifier_without_pubkeys_names_the_straus_slice():
     assert (ok, per) == jbv.verify()
     assert per == [jref.verify(*it) for it in items] == [True, False, True, False, True]
     with pytest.raises(ValueError):
-        batch.create_batch_verifier("bls12_381", pubkeys=[b"x" * 48], device="cpu")
+        batch.create_batch_verifier("sr25519", pubkeys=[b"x" * 32], device="cpu")
+    from cometbft_tpu_torch.models.bls_verifier import BlsAggregateVerifier
     from cometbft_tpu_torch.models.secp_verifier import SecpBatchVerifier
+
+    assert isinstance(batch.create_batch_verifier("bls12_381", pubkeys=[b"x" * 48], device="cpu"),
+                      BlsAggregateVerifier)
 
     assert isinstance(batch.create_batch_verifier("secp256k1", pubkeys=[b"x" * 33], device="cpu"),
                       SecpBatchVerifier)
