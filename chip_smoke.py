@@ -69,8 +69,11 @@ it and read just after it.
      GLV and Shamir verdicts identical, every path's verdicts equal to
      the host oracle on the planted rows and 64 sampled rows;
  14. K10 and the eight K11 / K12 instantiations against their plain
-     versions on every row, their times, and the work each spent (the
-     bound's operation count, per row from the run's data);
+     versions on every row, their times beside the one-thread design's, the work each spent
+     (the bound's operation count, per row from the run's data), their
+     launch shape (threads a row, blocks an SM) and ptxas figures
+     (registers, stack; a spill fails); then the eight on a block-edge
+     batch against their plain versions and the host oracle;
  15. SecpBatchVerifier.verify p50 over 10 calls with last_timings;
  16. BLS inputs: 10,000 keys whose secrets run a + i b (mod r) from the
      seed (a Jacobian add a key), the aggregate signature (sum sk) H(m),
@@ -111,6 +114,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -228,9 +232,21 @@ SECP_TIMING = {  # (kernel iters, warm-up); the plain versions run once, cold
     "keccak256_blocks": (50, 2),
     "secp": (5, 1),
 }
-# Field multiplies per operation, from csrc/secp256k1.cuh: doubling 7,
-# mixed add 11, general add 16, inversion and square root 270; a scalar
-# Montgomery multiply (CIOS) is 64 product and 64 reduction multiply-adds.
+# The one-thread K11 / K12's times at these batches (this script on an
+# NVIDIA H100 80GB HBM3 at 700 W, before the redesign), printed in phase
+# 14's log beside this run's; never in the kernels line, which holds only
+# what this run measured
+SECP_MS_ONE_THREAD = {
+    "secp_verify_batch": 2.2814, "secp_verify_batch_recover": 2.3968,
+    "secp_verify_batch_noglv": 2.8438, "secp_verify_batch_noglv_recover": 3.0166,
+    "secp_hash_verify": 2.3407, "secp_hash_verify_recover": 2.4094,
+    "secp_hash_verify_noglv": 2.8495, "secp_hash_verify_noglv_recover": 3.0214,
+}
+# Field multiplies per operation, from the one-thread design of
+# csrc/secp256k1.cuh that came first, kept as the bound's yardstick:
+# doubling 7, mixed add 11, general add 16, inversion and square root 270;
+# a scalar Montgomery multiply (CIOS) is 64 product and 64 reduction
+# multiply-adds.
 FM_DBL, FM_MADD, FM_ADD, FM_CHAIN = 7, 11, 16, 270
 OPS_PER_MONT_MUL = 128 * 4
 # Keccak-f per block, from csrc/keccak.cuh: 7,474 32-bit operations
@@ -256,7 +272,8 @@ def _signed_digits(k: int, nwin: int) -> list[int]:
 def secp_row_work(item, glv: bool, fused: bool, mods) -> tuple[int, int, int, int]:
     """(field multiplies, scalar Montgomery multiplies, Keccak blocks,
     SHA-256 blocks) that K11 (fused=False) or K12 (fused=True) spends on
-    one row of this run's data, following secp_verify_row's branches."""
+    one row of this run's data, following the branches of the one-thread
+    design that came first (the bound's yardstick since then)."""
     host_secp, host_eth, sv, S = mods
     pub, msg, sig = item
     P, N = host_secp.P, host_secp.N
@@ -311,6 +328,54 @@ def secp_row_work(item, glv: bool, fused: bool, mods) -> tuple[int, int, int, in
     return fm, mm, kb, sb
 
 
+# An H100 SM (sm_90): registers, resident threads and blocks, shared
+# memory (228 KB, of which each block reserves 1 KB for the system);
+# registers are given out to a warp in units of 256
+SM_REGS, SM_THREADS, SM_BLOCKS, SM_SMEM, SMEM_RESERVED = 65_536, 2_048, 32, 233_472, 1_024
+REG_UNIT = 256
+
+
+def blocks_per_sm(registers: int, smem: int, threads: int) -> int:
+    """The blocks of ``threads`` threads an H100 SM holds at once, from a
+    kernel's registers a thread and static shared memory (the figures of
+    its ptxas report), as the CUDA occupancy calculator counts them."""
+    warps = -(-threads // 32)
+    regs_warp = -(-registers * 32 // REG_UNIT) * REG_UNIT
+    by_regs = (SM_REGS // regs_warp) // warps if registers else SM_BLOCKS
+    by_smem = SM_SMEM // (smem + SMEM_RESERVED)
+    return min(by_regs, by_smem, SM_THREADS // threads, SM_BLOCKS)
+
+
+def secp_ptxas(report: str, variant) -> dict:
+    """Registers, static shared memory, stack (the kernel's cumulative
+    stack size) and spill bytes of each K11 / K12 instantiation (LAUNCHES
+    key) from secp.cu's kept ptxas report; "any_spill" sums the spills of
+    every function in it."""
+    out, cur, any_spill = {}, None, 0
+    for line in report.splitlines():
+        m = re.search(r"(k1[12])_kernelILb([01])ELb([01])E", line)
+        if m and "Compiling entry" in line:
+            cur = variant("secp_hash_verify" if m.group(1) == "k12" else "secp_verify_batch",
+                          m.group(2) == "1", m.group(3) == "1")
+            out[cur] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            any_spill += int(m.group(2)) + int(m.group(3))
+            if cur and "spill_bytes" not in out[cur]:
+                out[cur].update(stack_bytes=int(m.group(1)), spill_bytes=int(m.group(2)) + int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if cur and m:
+            out[cur]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[cur]["smem_bytes"] = int(m.group(1)) if m else 0
+            m = re.search(r"(\d+) bytes cumulative stack size", line)
+            if m:
+                out[cur]["stack_bytes"] = int(m.group(1))
+            cur = None
+    return {"kernels": out, "any_spill": any_spill}
+
+
 def secp_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_abs_err):
     """Phases 12-15 of main(): the secp lane.  Returns (results, times,
     bounds, meta, record) for the kernels JSON line."""
@@ -321,6 +386,10 @@ def secp_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_a
     from cometbft_tpu_torch.ops import keccak as K
     from cometbft_tpu_torch.ops import secp256k1 as S
     from cometbft_tpu_torch.verifysvc import checktx
+
+    # the block-edge batch's builders, shared with the tests
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_secp_corpus import block_edge_order, infinity_row
 
     mods = (host_secp, host_eth, sv, S)
     P, N = host_secp.P, host_secp.N
@@ -520,6 +589,19 @@ def secp_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_a
     log(f"[14] K10 == plain on the long batch's {int((ka > 0).sum())} Keccak rows and on {N_SECP} rows "
         f"of 0-300 B with stale bytes; == host Keccak on 64 of them")
 
+    from cometbft_tpu_torch import _build
+
+    rep = secp_ptxas(_build.BUILD_LOG["secp"]["ptxas"], S.variant)
+    ptx = rep["kernels"]
+    require(set(ptx) == set(S.LAUNCHES), f"secp.cu's ptxas report names {sorted(ptx)}")
+    for name, f in ptx.items():
+        require(f.get("spill_bytes", 1) == 0, f"{name} spills: {f}")
+    require(rep["any_spill"] == 0, f"a function of secp.cu spills {rep['any_spill']} bytes")
+    nrb = S.ROWS_PER_BLOCK
+    kshape = {name: {"threads_per_row": S.THREADS_PER_ROW, "rows_per_block": nrb,
+                     "blocks_per_sm": blocks_per_sm(ptx[name]["registers"], ptx[name]["smem_bytes"],
+                                                    S.THREADS_PER_ROW * nrb), **ptx[name]}
+              for name in S.LAUNCHES}
     for kind, (st, items, fused, recover) in stages.items():
         rows = (st["qx"], st["qy"], st["q_valid"])
         tail = (st["is_eth"], st["v"], st["is_rec"], st["addr"], gtab)
@@ -558,9 +640,51 @@ def secp_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_a
             nbytes = N_SECP * (5 * 32 + 3 + 4 + 20 + 1) + (
                 st["sha_blocks"].numel() + st["kec_blocks"].numel() + 8 * N_SECP if fused else 0)
             bounds[name] = ("operations", ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S)
+            ks = kshape[name]
             log(f"[14] {name} == plain on all {N_SECP} rows (plain {plain_ms:.1f} ms, once, cold); "
-                f"{times[name][0]:.3f} ms; work: {fm} field and {mm} scalar multiplies, {kbl} Keccak "
-                f"and {sbl} SHA-256 blocks")
+                f"{times[name][0]:.4f} ms (one thread a row: {SECP_MS_ONE_THREAD[name]} ms); {ks['threads_per_row']} threads a row, "
+                f"{ks['rows_per_block']} rows a block, {ks['blocks_per_sm']} blocks an SM; {ks['registers']} "
+                f"registers, {ks['stack_bytes']} bytes of stack, {ks['spill_bytes']} spilled; work: {fm} field "
+                f"and {mm} scalar multiplies, {kbl} Keccak and {sbl} SHA-256 blocks")
+
+    # the block-edge batch (as tests/test_torch_cuda.py): invalid rows at
+    # every block's first and last row and between valid ones, a block
+    # whose only valid row sits beside a row at infinity, a partial last
+    # block; every instantiation against its plain version and the oracle
+    inf_row = infinity_row(b"smoke")
+    pool_rows = [r for r in mixed[:64] if sv._host_verify_one(*r)]
+    edge_items = pool_rows + [x for _, x in planted] + [inf_row]
+    edge_want = [sv._host_verify_one(*x) for x in edge_items]
+    require(not edge_want[-1], "the infinity row verified on the host")
+    n_edge = 3 * nrb + 5
+    for recover in (True, False):
+        keep = [i for i, x in enumerate(edge_items) if recover or len(x[0]) != sv.ECR_PUB]
+        good = [i for i in keep if edge_want[i]]
+        bad = [i for i in keep if not edge_want[i]]
+        order = block_edge_order(good, bad, len(edge_items) - 1, n_edge, nrb)
+        batch = [edge_items[i] for i in order]
+        for fused in (True, False):
+            st = sv.stage_batch(batch, dev, fused, 119)
+            rows = (st["qx"], st["qy"], st["q_valid"])
+            tail = (st["is_eth"], st["v"], st["is_rec"], st["addr"], gtab)
+            e = None if fused else sv.staged_e(st)
+            for glv in (True, False):
+                name = S.variant("secp_hash_verify" if fused else "secp_verify_batch", glv, recover)
+                if fused:
+                    hb = (st["sha_blocks"], st["sha_active"], st["kec_blocks"], st["kec_active"])
+                    got = S.hash_verify_batch(*hb, *rows, st["r"], st["s"], *tail, glv=glv, recover=recover)
+                    want = S.hash_verify_batch_plain(*hb, *rows, st["r"], st["s"], *tail, glv=glv, recover=recover)
+                else:
+                    got = S.verify_batch(*rows, e, st["r"], st["s"], *tail, glv=glv, recover=recover)
+                    want = S.verify_batch_plain(*rows, e, st["r"], st["s"], *tail, glv=glv, recover=recover)
+                torch.cuda.synchronize()
+                require(torch.equal(got, want), f"{name} != plain on the block-edge batch")
+                require(got[:n_edge].tolist() == [edge_want[i] for i in order],
+                        f"{name} != host oracle on the block-edge batch")
+                results[name] = max(results[name], max_abs_err(got, want))
+    log(f"[14] the eight K11 / K12 instantiations == plain and the host oracle on the block-edge batch "
+        f"({n_edge} rows, {nrb}-row blocks: invalid rows at every block's edges, one valid row beside an "
+        f"infinity row, a partial block)")
 
     # ------------------------------------------------ 15. end to end
     p50s, phases = {}, {}
@@ -598,7 +722,7 @@ def secp_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_a
         tag = ("K12" if k12 else "K11") + "<%d,%d>" % ("noglv" not in name, "recover" in name)
         meta[name] = (tag, src_secp, "cometbft_tpu/ops/secp256k1.py:" + ("996" if k12 else "861"),
                       [rows_of[name]] if name in rows_of else [])
-    record = {"secp_p50_ms": p50s, "secp_phases_p50_ms": phases, "secp_rows": N_SECP,
+    record = {"secp_p50_ms": p50s, "secp_phases_p50_ms": phases, "secp_rows": N_SECP, "secp_kernels": kshape,
               "secp_decode_cache": dict(sv.CACHE_STATS),
               "secp_planted": len(planted), "secp_path_launches": path_counts}
     return results, times, bounds, meta, record
@@ -2251,6 +2375,8 @@ def main() -> int:
                        bound_ms_256=bound["verify_batch_256"][1] * 1e3)
         if name == "merkle_level":  # ms, plain_ms and bound_ms are for one whole tree
             rec.update(launches_per_tree=len(sizes_p), leaves=N_LEAVES, ms_top_level=k8_top_ms)
+        if name in secp_record["secp_kernels"]:  # launch shape and ptxas figures
+            rec.update(secp_record["secp_kernels"][name])
         if name == "aggregate_g1":  # ms and bound_ms cover both stages; launches count the tile stage
             rec.update(finish_launches=total_launches["aggregate_g1_finish"],
                        finish_ms=bls_record["bls_k14_finish_ms"], rows=N_BLS)

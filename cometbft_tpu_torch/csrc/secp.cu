@@ -2,134 +2,109 @@
 //
 // K11 k11_secp_verify replaces cometbft_tpu/ops/secp256k1.py:861
 // verify_batch (manifest rows secp256k1_verify_batch, _recover, _noglv,
-// _noglv_recover): one thread per row runs secp_verify_row<GLV, RECOVER>
-// (secp256k1.cuh) — range and low-s checks, the on-curve check or the
+// _noglv_recover): range and low-s checks, the on-curve check or the
 // ecrecover lift, the scalar inverse, the GLV (or Shamir) walk, the
-// affine normalisation and the Cosmos / Ethereum / ecrecover verdict.
+// affine normalisation and the Cosmos / Ethereum / ecrecover verdict of
+// each row (secp_block in secp256k1.cuh).
 //
 // K12 k12_secp_hash_verify replaces :996 hash_verify_batch (rows
-// secp256k1_hash_verify, _recover): the same row after hashing the row's
-// message on the card — Keccak-256 (keccak.cuh) on Ethereum and ecrecover
-// rows, SHA-256 (sha256.cuh) on Cosmos rows — and reading the digest as
-// the big-endian integer e (:825 _digest_to_limbs).
+// secp256k1_hash_verify, _recover): the same rows after hashing each
+// row's message on the card — Keccak-256 (keccak.cuh) on Ethereum and
+// ecrecover rows, SHA-256 (sha256.cuh) on Cosmos rows — and reading the
+// digest as the big-endian integer e (:825 _digest_to_limbs).
 //
+// Bound on this card: operations — about 2,900 field multiplies per
+// valid GLV row against under 300 bytes of input (chip_smoke.py counts
+// the first design's work per row from the run's data).  The first design
+// ran one thread a row: 4,096 rows filled 0.24 warps a scheduler, and a
+// row's chain of ~2,900 dependent multiplies went through ~2 KB of stack.
+// What this design does about it:
+//   1. Several threads per row.  A group of SECP_T = 4 threads holds a
+//      row; lane t runs the t-th GLV sub-walk (a1 G, a2 phi(G), b1 Q,
+//      b2 phi(Q): 33 windows of 4 doublings and a mixed add each), then
+//      two rounds of shuffles add the four partial points.  4,096 rows are
+//      512 warps, ~1 a scheduler, and a thread's chain is ~1,300
+//      multiplies instead of ~2,900.  (Spreading each field element over
+//      8 lanes instead, a multiply exchanging words by shuffles, was
+//      correct but 3x slower than the first design on the card: ~30
+//      dependent shuffles and ballots a multiply.)  The
+//      Shamir witness runs u1 G on lane 0 and u2 Q on lane 1.
+//   2. The chain in registers.  The walk's field and point operations
+//      are inlined; each lane's digits are shifted out of five words a
+//      window; the row's table of j Q lives in shared memory: no table on
+//      the stack.  The steps that run once a row, and the doubling that
+//      a complete add falls to on equal points, are calls (SECP_ONCE),
+//      so that cicc does not optimise them into each of the eight
+//      kernels.
+//   3. One inversion per block and kind, by Montgomery's trick in shared
+//      memory (the JAX program's batch_inverse, :444, per batch): the
+//      scalars s (r on ecrecover rows), the tables' Z_8 (whose prefix
+//      products give every Z_j^-1) and the walks' final Z.  A row pays
+//      three multiplies a value, the block one inversion of each product
+//      (a binary GCD; the scalar one on one warp while the first field one
+//      runs on another).  Decided rows, and accumulators at infinity,
+//      enter as 1.
+//   4. The table of j Q is affine after that inversion, so each Q or
+//      phi(Q) add is a mixed add (11 multiplies instead of 16).
+//   5. Outside the sub-walks (checks, K12's hashing, the scalars, the
+//      table, the verdict) the four lanes run the same code on the same
+//      words, so nothing needs spreading to the group.
 // Differences of route from the TPU program, with identical verdicts:
-// the batch-wide Montgomery inversions (:444, a Hillis-Steele prefix
-// product across the batch) become per-lane Fermat inversions — an
-// inverse mod a prime is unique, so each row's value is the same, and a
-// row that would have been sanitised to 1 (s = 0, Z = 0) is decided
-// before it reaches an inversion; the one-hot table selects become
-// indexed loads; rows that fail validation skip the walk.
-//
-// Bound on this card: operations — about 3,900 field multiplies and 350
-// scalar Montgomery multiplies per valid row against under 300 bytes of
-// input (chip_smoke.py counts them per row from the run's data).  What
-// this first version does about it: one thread per row, the Q table in
-// local memory, the G and phi(G) tables (1 KB) shared through the
-// read-only cache, field multiplies and point operations not inlined to
-// keep the four instantiations of each kernel quick to build.
+// the block-wide rather than batch-wide product, inverted by a binary GCD
+// rather than a Fermat chain (an inverse mod a prime is unique); the
+// one-hot table selects become loads; rows that fail validation skip the
+// walk.
 //
 // Both launch on the caller's stream, allocate nothing, and return
 // cudaGetLastError().
 #include <cuda_runtime.h>
 
 #include "secp256k1.cuh"
-#include "sha256.cuh"
 
-#define SECP_THREADS 32
+template <bool GLV, bool RECOVER, bool HASH>
+__device__ __forceinline__ void secp_kernel_body(const SecpIn& in) {
+  __shared__ SecpShared sm;
+  const int gid = threadIdx.x / SECP_T;
+  grp g;
+  g.lane = threadIdx.x & (SECP_T - 1);
+  g.mask = ((1u << SECP_T) - 1) << ((threadIdx.x & 31) & ~(SECP_T - 1));
+  SecpRow st;
+  jac acc;
+  secp_block<GLV, RECOVER, HASH>(in, blockIdx.x, sm, gid, st, acc, g);
+}
 
+// One block an SM is all a batch fills (4,096 rows are 128 blocks), so
+// ptxas may take the registers that four blocks would share: left to aim
+// at four, it held the chain to 128 registers and spilled.  The arguments
+// are __grid_constant__: the once-a-row calls read them where they lie,
+// with no copy on the stack.
 template <bool GLV, bool RECOVER>
-__global__ void k11_kernel(const u32* __restrict__ qx, const u32* __restrict__ qy,
-                           const uint8_t* __restrict__ q_valid,
-                           const u32* __restrict__ e, const u32* __restrict__ r,
-                           const u32* __restrict__ s,
-                           const uint8_t* __restrict__ is_eth,
-                           const int32_t* __restrict__ v,
-                           const uint8_t* __restrict__ is_rec,
-                           const uint8_t* __restrict__ addr,
-                           const u32* __restrict__ gtab, uint8_t* __restrict__ out,
-                           int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  size_t o = (size_t)i * 8;
-  u32 a[8], b[8], ee[8], rr[8], ss[8];
-  UNROLL
-  for (int k = 0; k < 8; k++) {
-    a[k] = qx[o + k];
-    b[k] = qy[o + k];
-    ee[k] = e[o + k];
-    rr[k] = r[o + k];
-    ss[k] = s[o + k];
-  }
-  bool ok = secp_verify_row<GLV, RECOVER>(a, b, q_valid[i] != 0, ee, rr, ss,
-                                          is_eth[i] != 0, v[i], is_rec[i] != 0,
-                                          addr + (size_t)i * 20, gtab);
-  out[i] = ok ? 1 : 0;
+__global__ void __launch_bounds__(SECP_BLOCK, 1) k11_kernel(const __grid_constant__ SecpIn in) {
+  secp_kernel_body<GLV, RECOVER, false>(in);
 }
 
 template <bool GLV, bool RECOVER>
-__global__ void k12_kernel(const uint8_t* __restrict__ sha_blocks,
-                           const int32_t* __restrict__ sha_active, int sha_nb,
-                           const uint8_t* __restrict__ kec_blocks,
-                           const int32_t* __restrict__ kec_active, int kec_nb,
-                           const u32* __restrict__ qx, const u32* __restrict__ qy,
-                           const uint8_t* __restrict__ q_valid,
-                           const u32* __restrict__ r, const u32* __restrict__ s,
-                           const uint8_t* __restrict__ is_eth,
-                           const int32_t* __restrict__ v,
-                           const uint8_t* __restrict__ is_rec,
-                           const uint8_t* __restrict__ addr,
-                           const u32* __restrict__ gtab, uint8_t* __restrict__ out,
-                           int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  bool eth = is_eth[i] != 0, rec = is_rec[i] != 0;
-  // e = the row's digest read as a big-endian 256-bit integer
-  u32 ee[8];
-  if (eth || rec) {
-    uint64_t st[25];
-    keccak256_row_state(st, kec_blocks + (size_t)i * kec_nb * KECCAK_RATE, kec_nb,
-                        kec_active[i]);
-    UNROLL
-    for (int k = 0; k < 8; k++) {
-      int m = 7 - k;  // digest bytes 4m..4m+3 are the 32-bit half m & 1 of lane m / 2
-      ee[k] = bswap32((u32)(st[m >> 1] >> (32 * (m & 1))));
-    }
+__global__ void __launch_bounds__(SECP_BLOCK, 1) k12_kernel(const __grid_constant__ SecpIn in) {
+  secp_kernel_body<GLV, RECOVER, true>(in);
+}
+
+template <bool K12>
+static void secp_launch(const SecpIn& in, int glv, int recover, cudaStream_t st) {
+  dim3 grid((in.n + SECP_ROWS - 1) / SECP_ROWS), block(SECP_BLOCK);
+  if (glv && recover) {
+    if (K12) k12_kernel<true, true><<<grid, block, 0, st>>>(in);
+    else k11_kernel<true, true><<<grid, block, 0, st>>>(in);
+  } else if (glv) {
+    if (K12) k12_kernel<true, false><<<grid, block, 0, st>>>(in);
+    else k11_kernel<true, false><<<grid, block, 0, st>>>(in);
+  } else if (recover) {
+    if (K12) k12_kernel<false, true><<<grid, block, 0, st>>>(in);
+    else k11_kernel<false, true><<<grid, block, 0, st>>>(in);
   } else {
-    u32 st[8];
-    sha256_init(st);
-    const uint8_t* blocks = sha_blocks + (size_t)i * sha_nb * 64;
-    int act = sha_active[i];
-    NOUNROLL
-    for (int bk = 0; bk < sha_nb && bk < act; bk++) {
-      const u32* src = (const u32*)(blocks + (size_t)bk * 64);
-      u32 w[16];
-      UNROLL
-      for (int k = 0; k < 16; k++) w[k] = bswap32(LDG(src + k));
-      sha256_compress(st, w);
-    }
-    UNROLL
-    for (int k = 0; k < 8; k++) ee[k] = st[7 - k];
+    if (K12) k12_kernel<false, false><<<grid, block, 0, st>>>(in);
+    else k11_kernel<false, false><<<grid, block, 0, st>>>(in);
   }
-  size_t o = (size_t)i * 8;
-  u32 a[8], b[8], rr[8], ss[8];
-  UNROLL
-  for (int k = 0; k < 8; k++) {
-    a[k] = qx[o + k];
-    b[k] = qy[o + k];
-    rr[k] = r[o + k];
-    ss[k] = s[o + k];
-  }
-  bool ok = secp_verify_row<GLV, RECOVER>(a, b, q_valid[i] != 0, ee, rr, ss, eth,
-                                          v[i], rec, addr + (size_t)i * 20, gtab);
-  out[i] = ok ? 1 : 0;
 }
-
-#define K11_ARGS                                                              \
-  (const u32*)qx, (const u32*)qy, (const uint8_t*)q_valid, (const u32*)e,     \
-      (const u32*)r, (const u32*)s, (const uint8_t*)is_eth, (const int32_t*)v, \
-      (const uint8_t*)is_rec, (const uint8_t*)addr, (const u32*)gtab,          \
-      (uint8_t*)out, n
 
 // qx, qy, e, r, s: n x 8 little-endian u32 words; q_valid, is_eth, is_rec:
 // n bytes (0 / 1); v: n int32; addr: n x 20 bytes; gtab: the 2 x 8 x 2 x 8
@@ -140,28 +115,15 @@ extern "C" int k11_secp_verify(const void* qx, const void* qy, const void* q_val
                                const void* addr, const void* gtab, void* out, int n,
                                int glv, int recover, void* stream) {
   if (n > 0) {
-    dim3 grid((n + SECP_THREADS - 1) / SECP_THREADS), block(SECP_THREADS);
-    cudaStream_t st = (cudaStream_t)stream;
-    if (glv && recover) {
-      k11_kernel<true, true><<<grid, block, 0, st>>>(K11_ARGS);
-    } else if (glv) {
-      k11_kernel<true, false><<<grid, block, 0, st>>>(K11_ARGS);
-    } else if (recover) {
-      k11_kernel<false, true><<<grid, block, 0, st>>>(K11_ARGS);
-    } else {
-      k11_kernel<false, false><<<grid, block, 0, st>>>(K11_ARGS);
-    }
+    const SecpIn in = {(const u32*)qx,      (const u32*)qy,      (const u32*)e,
+                       (const u32*)r,       (const u32*)s,       (const u32*)gtab,
+                       (const uint8_t*)q_valid, (const uint8_t*)is_eth, (const uint8_t*)is_rec,
+                       (const uint8_t*)addr, (const int32_t*)v,  nullptr, nullptr, 0,
+                       nullptr,             nullptr,             0,   (uint8_t*)out, n};
+    secp_launch<false>(in, glv, recover, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }
-
-#define K12_ARGS                                                                 \
-  (const uint8_t*)sha_blocks, (const int32_t*)sha_active, sha_nb,                \
-      (const uint8_t*)kec_blocks, (const int32_t*)kec_active, kec_nb,            \
-      (const u32*)qx, (const u32*)qy, (const uint8_t*)q_valid, (const u32*)r,    \
-      (const u32*)s, (const uint8_t*)is_eth, (const int32_t*)v,                  \
-      (const uint8_t*)is_rec, (const uint8_t*)addr, (const u32*)gtab,            \
-      (uint8_t*)out, n
 
 // sha_blocks: n x sha_nb x 64 bytes (4-byte aligned) + sha_active n int32;
 // kec_blocks: n x kec_nb x 136 bytes (8-byte aligned) + kec_active n int32;
@@ -176,17 +138,26 @@ extern "C" int k12_secp_hash_verify(const void* sha_blocks, const void* sha_acti
                                     const void* gtab, void* out, int n, int glv,
                                     int recover, void* stream) {
   if (n > 0) {
-    dim3 grid((n + SECP_THREADS - 1) / SECP_THREADS), block(SECP_THREADS);
-    cudaStream_t st = (cudaStream_t)stream;
-    if (glv && recover) {
-      k12_kernel<true, true><<<grid, block, 0, st>>>(K12_ARGS);
-    } else if (glv) {
-      k12_kernel<true, false><<<grid, block, 0, st>>>(K12_ARGS);
-    } else if (recover) {
-      k12_kernel<false, true><<<grid, block, 0, st>>>(K12_ARGS);
-    } else {
-      k12_kernel<false, false><<<grid, block, 0, st>>>(K12_ARGS);
-    }
+    const SecpIn in = {(const u32*)qx,
+                       (const u32*)qy,
+                       nullptr,
+                       (const u32*)r,
+                       (const u32*)s,
+                       (const u32*)gtab,
+                       (const uint8_t*)q_valid,
+                       (const uint8_t*)is_eth,
+                       (const uint8_t*)is_rec,
+                       (const uint8_t*)addr,
+                       (const int32_t*)v,
+                       (const uint8_t*)sha_blocks,
+                       (const int32_t*)sha_active,
+                       sha_nb,
+                       (const uint8_t*)kec_blocks,
+                       (const int32_t*)kec_active,
+                       kec_nb,
+                       (uint8_t*)out,
+                       n};
+    secp_launch<true>(in, glv, recover, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }

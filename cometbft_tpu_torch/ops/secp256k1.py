@@ -1,8 +1,9 @@
 """Batched secp256k1 ECDSA verification on the card — K11 and K12, the
 port of cometbft_tpu/ops/secp256k1.py.
 
-Kernels (CUDA C++ in csrc/secp.cu; per-row arithmetic in
-csrc/secp256k1.cuh, hashing in csrc/keccak.cuh and csrc/sha256.cuh):
+Kernels (CUDA C++ in csrc/secp.cu; the group arithmetic and the block
+algorithm in csrc/secp256k1.cuh, hashing in csrc/keccak.cuh and
+csrc/sha256.cuh; SECP_T threads a row, one inversion a block and kind):
 
   K11 ``verify_batch``       replaces cometbft_tpu/ops/secp256k1.py:861
       (manifest rows secp256k1_verify_batch, _recover, _noglv,
@@ -30,9 +31,12 @@ device once (``g_table``).
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 PyTorch version for CPU tensors; ``LAUNCHES`` counts kernel launches per
 instantiation.  The plain version works on 16 x 16-bit limbs in int64
-tensors, canonical (in [0, p) or [0, n)) after every operation, and
-repeats the kernel's algorithm row for row with selects where the
-kernel branches.
+tensors, canonical (in [0, p) or [0, n)) after every operation, with
+selects where the kernel branches.  It computes every row alone (a
+Fermat inversion of its own s and Z, a Jacobian table of j Q); the
+kernels share the inversions across a block and make the table affine.
+An inverse mod a prime is unique and the walk's points do not depend on
+their coordinates' scale, so the verdicts are the same bytes.
 """
 
 from __future__ import annotations
@@ -61,6 +65,13 @@ LAUNCHES = {
     "secp_hash_verify_noglv": 0,  # K12<0,0>
     "secp_hash_verify_noglv_recover": 0,  # K12<0,1>
 }
+
+
+# The kernels' launch shape, csrc/secp256k1.cuh SECP_T and SECP_ROWS
+# (held to the header by tests/test_torch_secp.py): threads a row, rows
+# (groups) a block, one inversion of each kind a block
+THREADS_PER_ROW = 4
+ROWS_PER_BLOCK = 32
 
 
 def variant(base: str, glv: bool, recover: bool) -> str:
@@ -146,9 +157,11 @@ def header_constants() -> dict[str, int]:
     these by tests/test_torch_secp.py)."""
     return {
         "SECP_N": N, "SECP_NHALF": N // 2, "SECP_R2N": R_MONT * R_MONT % N,
-        "SECP_ONE_N_MONT": R_MONT % N, "SECP_BETA": BETA, "SECP_G1": G1, "SECP_G2": G2,
+        "SECP_ONE_N_MONT": R_MONT % N, "SECP_R3N": R_MONT ** 3 % N, "SECP_BETA": BETA,
+        "SECP_G1": G1, "SECP_G2": G2,
         "SECP_M1R": M1 * R_MONT % N, "SECP_M2R": M2 * R_MONT % N,
         "SECP_LAMR": LAM * R_MONT % N, "SECP_NINV": (-pow(N, -1, 1 << 32)) % (1 << 32),
+        "SECP_T": THREADS_PER_ROW, "SECP_ROWS": ROWS_PER_BLOCK,
     }
 
 
@@ -373,7 +386,8 @@ def _fp_x223(a):
 
 
 def fp_inv(a):
-    """a^(p - 2) by the addition chain of csrc/secp256k1.cuh fp_inv."""
+    """a^(p - 2) by libsecp256k1's addition chain (the kernels invert a
+    block's product by a binary GCD instead: the same inverse)."""
     x223, x22, x2 = _fp_x223(a)
     t = fp_mul(_fp_sqr_n(x223, 23), x22)
     t = fp_mul(_fp_sqr_n(t, 5), a)
@@ -427,7 +441,9 @@ _NM2_NIBBLES = [((N - 2) >> (4 * i)) & 15 for i in range(63, -1, -1)]
 
 
 def sc_inv_mont(xm):
-    """x R -> x^-1 R: the 4-bit window of csrc/secp256k1.cuh sc_inv_mont."""
+    """x R -> x^-1 R: a 4-bit window over the digits of n - 2
+    (_NM2_NIBBLES).  The kernels invert a block's product by a binary GCD
+    instead: the same inverse."""
     tab = [_const(R_MONT % N, xm.device).expand_as(xm), xm]
     for _ in range(2, 16):
         tab.append(sc_mont_mul(tab[-1], xm))
@@ -564,7 +580,8 @@ def _add_var(acc, d, neg, T, phi: bool):
 
 
 def walk_plain(u1, u2, px, py, gtab, glv: bool):
-    """u1 G + u2 P over canonical limbs: the kernel's secp_walk."""
+    """u1 G + u2 P over canonical limbs, as one joint walk over the
+    kernels' signed digits (the kernels split it over their lanes)."""
     one = _one(px)
     T = [(px, py, one), pt_double(px, py, one)]
     for _ in range(2, 8):

@@ -328,6 +328,101 @@ def test_secp_batch_verifier_takes_each_route(dev, secp_case, monkeypatch):
         assert S.LAUNCHES[name] == before[name] + 1
 
 
+@pytest.fixture(scope="module")
+def secp_edge_case(secp_case):
+    from torch_secp_corpus import infinity_row
+
+    from cometbft_tpu_torch.models import secp_verifier as sv
+    from cometbft_tpu_torch.ops import secp256k1 as S
+
+    items, expect = secp_case
+    inf = infinity_row(b"cuda")
+    assert not sv._host_verify_one(*inf)
+    return items + [inf], expect + [False], S.ROWS_PER_BLOCK
+
+
+def _secp_launch_into(st, e, out, fused, glv, recover):
+    """The C entry as the wrappers call it, into a given output."""
+    from cometbft_tpu_torch import _build
+    from cometbft_tpu_torch.ops import secp256k1 as S
+
+    gtab = S.g_table(out.device)
+    n = st["qx"].shape[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = _build.lib("secp")
+    if fused:
+        a = [st["sha_blocks"], st["sha_active"], st["kec_blocks"], st["kec_active"], st["qx"], st["qy"],
+             st["q_valid"], st["r"], st["s"], st["is_eth"], st["v"], st["is_rec"], st["addr"], gtab, out]
+        p = [x.data_ptr() for x in a]
+        code = lib.k12_secp_hash_verify(p[0], p[1], st["sha_blocks"].shape[1], p[2], p[3],
+                                        st["kec_blocks"].shape[1], *p[4:], n, int(glv), int(recover), stream)
+    else:
+        a = [st["qx"], st["qy"], st["q_valid"], e, st["r"], st["s"], st["is_eth"], st["v"], st["is_rec"],
+             st["addr"], gtab, out]
+        code = lib.k11_secp_verify(*[x.data_ptr() for x in a], n, int(glv), int(recover), stream)
+    _build.check(code, "secp launch")
+
+
+def _secp_check_batch(dev, batch, want_host, fused, glv, recover):
+    """One batch through K11 / K12 into an output of 0xAA, against the
+    plain version on every row and the host oracle on the batch's rows."""
+    from cometbft_tpu_torch.models import secp_verifier as sv
+    from cometbft_tpu_torch.ops import secp256k1 as S
+
+    st = sv.stage_batch(batch, dev, fused, 119)
+    e = None if fused else sv.staged_e(st).contiguous()
+    out = torch.full((st["qx"].shape[0],), 0xAA, dtype=torch.uint8, device=dev)
+    _secp_launch_into(st, e, out, fused, glv, recover)
+    rows = (st["qx"], st["qy"], st["q_valid"])
+    tail = (st["is_eth"], st["v"], st["is_rec"], st["addr"], S.g_table(dev))
+    if fused:
+        hb = (st["sha_blocks"], st["sha_active"], st["kec_blocks"], st["kec_active"])
+        want = S.hash_verify_batch_plain(*hb, *rows, st["r"], st["s"], *tail, glv=glv, recover=recover)
+    else:
+        want = S.verify_batch_plain(*rows, e, st["r"], st["s"], *tail, glv=glv, recover=recover)
+    torch.cuda.synchronize()
+    assert set(out.tolist()) <= {0, 1}  # every row written
+    assert torch.equal(out.bool(), want)
+    assert out.bool()[: len(batch)].tolist() == want_host
+
+
+@pytest.mark.parametrize("n", [1, 3, 31, 33, 255, 4096])
+@pytest.mark.parametrize("hash_dev", [True, False], ids=["k12", "k11"])
+@pytest.mark.parametrize("recover", [True, False], ids=["recover", "verify"])
+@pytest.mark.parametrize("glv", [True, False], ids=["glv", "shamir"])
+def test_k11_k12_block_edges_match_plain(dev, secp_edge_case, glv, recover, hash_dev, n):
+    """Every instantiation at partial groups and blocks: invalid rows at
+    every block's first and last row and between valid rows, a block whose
+    one valid row sits beside a row at infinity (chip_smoke.py's
+    block-edge batch)."""
+    from torch_secp_corpus import block_edge_order
+
+    from cometbft_tpu_torch.models import secp_verifier as sv
+
+    items, expect, rows = secp_edge_case
+    keep = [i for i, it in enumerate(items) if recover or len(it[0]) != sv.ECR_PUB]
+    good = [i for i in keep if expect[i]]
+    bad = [i for i in keep if not expect[i]]
+    order = block_edge_order(good, bad, len(items) - 1, n, rows)
+    _secp_check_batch(dev, [items[i] for i in order], [expect[i] for i in order], hash_dev, glv, recover)
+
+
+@pytest.mark.parametrize("kind", ["cosmos", "eth", "ecrecover"])
+@pytest.mark.parametrize("hash_dev", [True, False], ids=["k12", "k11"])
+@pytest.mark.parametrize("glv", [True, False], ids=["glv", "shamir"])
+def test_k11_k12_single_kind_batches(dev, secp_edge_case, kind, glv, hash_dev):
+    """Batches of one wire shape (valid and invalid rows of that shape
+    only), beside the mixed batches above."""
+    from cometbft_tpu_torch.models import secp_verifier as sv
+
+    items, expect, _ = secp_edge_case
+    size = {"cosmos": sv.COSMOS_PUB, "eth": sv.ETH_PUB, "ecrecover": sv.ECR_PUB}[kind]
+    idx = [i for i, it in enumerate(items) if len(it[0]) == size]
+    order = [idx[k % len(idx)] for k in range(200)]
+    for recover in (True, False) if kind != "ecrecover" else (True,):
+        _secp_check_batch(dev, [items[i] for i in order], [expect[i] for i in order], hash_dev, glv, recover)
+
+
 def _bls_points(n, seed):
     """n subgroup points a + i b (times G), affine, by one Jacobian add a
     point and one batched inversion."""

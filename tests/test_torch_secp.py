@@ -59,15 +59,15 @@ def test_header_constants_match_the_derivation():
     ops/secp256k1.py."""
     text = (ROOT / "cometbft_tpu_torch" / "csrc" / "secp256k1.cuh").read_text()
     for name, val in S.header_constants().items():
-        if name == "SECP_NINV":
-            got = int(re.search(r"#define SECP_NINV (0x[0-9A-Fa-f]+)u", text).group(1), 16)
+        define = re.search(r"#define " + name + r" (0x[0-9A-Fa-f]+|\d+)u?\b", text)
+        if define:
+            got = int(define.group(1), 0)
         else:
             body = re.search(name + r"\[\d+\] = \{([^}]*)\}", text).group(1)
             words = [int(w.strip().rstrip("u"), 16) for w in body.split(",") if w.strip()]
             got = sum(w << (32 * i) for i, w in enumerate(words))
         assert got == val, name
-    body = re.search(r"SECP_NM2_NIBBLES\[64\] = \{([^}]*)\}", text).group(1)
-    assert [int(x) for x in body.replace("\n", " ").split(",") if x.strip()] == S._NM2_NIBBLES
+    assert len(S._NM2_NIBBLES) == 64 and all(0 <= d < 16 for d in S._NM2_NIBBLES)
     assert sum(d << (4 * (63 - i)) for i, d in enumerate(S._NM2_NIBBLES)) == N - 2
 
 

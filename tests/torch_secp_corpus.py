@@ -113,3 +113,33 @@ def corpus(tag: bytes = b"") -> list[tuple[bytes, bytes, bytes, str]]:
     recover(b"r-xs", tamper=lambda p, m, s: (p, m, s[:64]), label="ecrecover, cosmos sig length")
     out.append(wraparound_row() + ("x == r + n",))
     return out
+
+
+def infinity_row(tag: bytes = b"") -> tuple[bytes, bytes, bytes]:
+    """A Cosmos row whose walk ends at infinity: with the key
+    Q = -(e / r) G, u1 G + u2 Q = (e G + r Q) / s = O (the row is false,
+    and its final Z of 0 must enter a block's inversion as 1)."""
+    import hashlib
+
+    msg = b"infinity " + tag
+    e = int.from_bytes(hashlib.sha256(msg).digest(), "big")
+    r, s = 0x5A5A5A5A1234567890ABCDEF, 0x0F1E2D3C4B5A69788796A5B4C3D2E1F0
+    q = host._mul((-e * pow(r, N - 2, N)) % N, host.G)
+    return host._compress(q), msg, r.to_bytes(32, "big") + s.to_bytes(32, "big")
+
+
+def block_edge_order(good: list, bad: list, inf: int, n: int, rows: int) -> list:
+    """n row indices for a block-edge batch of ``rows``-row blocks: valid
+    rows round-robin, invalid ones at every block's first and last row
+    and at every seventh row; the second block holds one valid row, with
+    the infinity row beside it, among invalid ones."""
+    order = [good[k % len(good)] for k in range(n)]
+    for k in range(n):
+        if k % rows in (0, rows - 1) or k % 7 == 3:
+            order[k] = bad[k % len(bad)]
+    if n >= 2 * rows:
+        order[rows : 2 * rows] = [bad[k % len(bad)] for k in range(rows)]
+        order[rows + rows // 2], order[rows + rows // 2 + 1] = good[0], inf
+    elif n >= 2:
+        order[n // 2] = inf
+    return order
