@@ -27,10 +27,15 @@ it and read just after it.
   3. K1-K4 against their plain versions at the comb path's shapes
      (byte-exact), the planted commit's bitmap against the plain version
      on every row and the host oracle on the planted rows plus 256
-     sampled rows;
+     sampled rows; K4 on block-edge batches of 1-10,001 lanes
+     (tests/torch_comb_corpus.py) against the plain version and the
+     corpus's verdicts, output buffers poisoned first;
   4. times of the comb path: the table build, verify_commit p50 with the
      verifier's phase timings (K4 and no K5 launched), each kernel and
-     its plain version by CUDA events, peak device memory;
+     its plain version by CUDA events, peak device memory; K4's time at
+     a world-4 rank's 2,504 lanes, its launch shape (threads a lane and
+     a block, blocks an SM) and ptxas figures (a spill fails), comb.cu's
+     build time;
   5. the uncached path: the commit's 10,000 items with the planted faults
      through the Straus verifier (16,384 lanes), K5 against its plain
      version on every lane and the host oracle on the planted rows plus
@@ -138,6 +143,11 @@ SEED = 20261017
 I_FLIP, I_S_GE_L, I_BAD_R = 4_321, 777, 9_999
 ABSENT = [12, 5_000, 8_888]
 N_ORACLE_SAMPLE = 256
+K4_EDGE_SIZES = (1, 7, 8, 9, 31, 33, 257, 10_001)  # K4's block-edge batches (phase 3)
+V_RANK = 2_504  # a world-4 rank's lanes (phase 23): K4 is timed there too
+# The one-thread K4's time at 10,000 lanes (this script on an NVIDIA H100 80GB HBM3 at 700 W, before
+# the redesign; PERF.md's run J), printed in phase 4's log beside this run's; never in the kernels line
+K4_MS_ONE_THREAD = 0.7288
 # Each precommit carries its signer's own clock: one second for the whole
 # commit, nanoseconds uniform in [0, 1e9) from SEED.  Nanos below 2^28
 # encode as a 4-byte varint and the rest as 5 bytes, so the commit's
@@ -170,7 +180,9 @@ INT32_OPS_PER_S = 33.5e12
 OPS_PER_FIELD_MUL = 100 * 4
 OPS_PER_SHA512_BLOCK = 5_000  # 80 rounds + 64 schedule steps of ~2,500 64-bit ops, x2 for 32-bit
 FIELD_MULS_PER_TABLE = 270 + 64 * (7 * 9 + 8) + 512 + 265 + 512 * 6  # K3, per validator
-FIELD_MULS_PER_VERIFY = 270 + 86 * 7 + 9 + 3 * 8  # K4, per lane
+# K4, per lane, the bound's count: R's decompression, 86 mixed adds of 7,
+# the -R add of 9 and 3 doublings of 8
+FIELD_MULS_PER_VERIFY = 270 + 86 * 7 + 9 + 3 * 8
 # K5, per lane: two decompressions, the -A table (8 conversions, 1
 # doubling, 6 cached adds), 64 steps of 4 doublings + a cached add + a
 # mixed add, then -R and 3 doublings
@@ -346,18 +358,18 @@ def blocks_per_sm(registers: int, smem: int, threads: int) -> int:
     return min(by_regs, by_smem, SM_THREADS // threads, SM_BLOCKS)
 
 
-def secp_ptxas(report: str, variant) -> dict:
+def ptxas_kernels(report: str, entry_key) -> dict:
     """Registers, static shared memory, stack (the kernel's cumulative
-    stack size) and spill bytes of each K11 / K12 instantiation (LAUNCHES
-    key) from secp.cu's kept ptxas report; "any_spill" sums the spills of
-    every function in it."""
+    stack size) and spill bytes of the kernels of one source's kept ptxas
+    report, keyed by entry_key(line) of each kernel's "Compiling entry"
+    line (None: a kernel not asked for); "any_spill" sums the spills of
+    every function in the report."""
     out, cur, any_spill = {}, None, 0
     for line in report.splitlines():
-        m = re.search(r"(k1[12])_kernelILb([01])ELb([01])E", line)
-        if m and "Compiling entry" in line:
-            cur = variant("secp_hash_verify" if m.group(1) == "k12" else "secp_verify_batch",
-                          m.group(2) == "1", m.group(3) == "1")
-            out[cur] = {}
+        if "Compiling entry" in line:
+            cur = entry_key(line)
+            if cur is not None:
+                out[cur] = {}
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
@@ -591,7 +603,12 @@ def secp_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_a
 
     from cometbft_tpu_torch import _build
 
-    rep = secp_ptxas(_build.BUILD_LOG["secp"]["ptxas"], S.variant)
+    def secp_entry(line):  # k11_kernel<GLV, RECOVER> / k12_kernel<...> -> LAUNCHES key
+        m = re.search(r"(k1[12])_kernelILb([01])ELb([01])E", line)
+        return m and S.variant("secp_hash_verify" if m.group(1) == "k12" else "secp_verify_batch",
+                               m.group(2) == "1", m.group(3) == "1")
+
+    rep = ptxas_kernels(_build.BUILD_LOG["secp"]["ptxas"], secp_entry)
     ptx = rep["kernels"]
     require(set(ptx) == set(S.LAUNCHES), f"secp.cu's ptxas report names {sorted(ptx)}")
     for name, f in ptx.items():
@@ -1731,6 +1748,39 @@ def main() -> int:
     log(f"[3] K4 == plain on all {V_MAIN} rows; == host oracle on {len(check_rows)} rows "
         f"(planted {sorted(planted)}, absent {absent})")
 
+    # K4 at the edges of its groups, warps and blocks (tests/torch_comb_corpus.py):
+    # failing lanes of every class at each warp's first and last lane and each
+    # block's last, non-live lanes beside valid ones, lanes whose k leaves one
+    # thread's whole share at the identity, s = 0; every size against the plain
+    # version and the corpus's verdicts, all-ok byte included, over a poisoned
+    # output buffer
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_comb_corpus as CC
+
+    pool = CC.Pool(SEED + 9)
+    pool_tab, pool_val = comb.build_a_tables(torch.from_numpy(pool.pubs).to(dev))
+    b_tab = entry.b_tables
+    edge_cnt = torch.empty((2,), dtype=torch.int32, device=dev)
+    for V_e in K4_EDGE_SIZES:
+        for mode in ("mixed", "valid", "valid_dead") if V_e == 257 else ("mixed",):
+            eb = CC.batch(pool, V_e, SEED + V_e, mode)
+            key = torch.from_numpy(eb["key"]).to(dev)
+            e_tab, e_val = pool_tab[key], pool_val[key]
+            e_pay, e_dig = torch.from_numpy(eb["payload"]).to(dev), torch.from_numpy(eb["digest"]).to(dev)
+            e_out = torch.full(((V_e + 7) // 8 + 1,), 0xAA, dtype=torch.uint8, device=dev)
+            comb.launch_k4(e_tab, e_val.to(torch.uint8), e_pay, e_dig, b_tab, edge_cnt, e_out)
+            e_ok = comb.verify_cached_plain(e_tab, e_val, e_pay, e_dig, b_tab)
+            e_want = comb.pack_verdicts(e_ok, e_pay[:, 67] == 1)
+            torch.cuda.synchronize()
+            require(torch.equal(e_out, e_want), f"K4 != plain on the {V_e}-lane {mode} edge batch")
+            require(np.array_equal(e_out.cpu().numpy(), CC.packed_expect(eb)),
+                    f"K4 != the corpus's verdicts on the {V_e}-lane {mode} edge batch")
+            results["verify_cached"] = max(results["verify_cached"], max_abs_err(e_out, e_want))
+    del e_tab, e_val
+    log(f"[3] K4 == plain and the corpus's verdicts on edge batches of {K4_EDGE_SIZES} lanes (failing "
+        f"lanes at warp and block edges, non-live lanes, identity shares, s = 0; all-valid and "
+        f"valid + failing non-live batches at 257), output buffers poisoned with 0xAA")
+
     # ---------------------------------------------------- 4. times
     walls, phases = [], []
     zero_counts()
@@ -1825,6 +1875,29 @@ def main() -> int:
         f"{cold_build_ms:.1f} ms in the main path (the process's first K3 launch), "
         f"{warm_build_ms:.1f} ms for a second set")
     log(f"[4] peak device memory on the main path: {peak / 2**20:.1f} MiB")
+
+    # K4's launch shape and ptxas figures (a spill fails the run), and its
+    # time at a world-4 rank's 2,504 lanes beside the 10,000 above
+    out_rank = torch.empty((V_RANK // 8 + 1,), dtype=torch.uint8, device=dev)
+    it, wu, _, _ = TIMING["verify_cached"]
+    k4_rank_ms = cuda_ms(lambda: comb.launch_k4(entry.tables[:V_RANK], valid_u8[:V_RANK], good_payload[:V_RANK],
+                                                dig[:V_RANK], entry.b_tables, cnt, out_rank), it, wu)
+    comb_log = _build.BUILD_LOG["comb"]
+    comb_ptx = ptxas_kernels(comb_log["ptxas"], lambda line: "verify_cached" if "k4_kernel" in line else
+                             "build_a_tables" if "k3_kernel" in line else None)["kernels"]
+    k4p = comb_ptx["verify_cached"]
+    require(k4p.get("spill_bytes", 1) == 0, f"K4 spills: {k4p}")
+    k4_threads = comb.THREADS_PER_LANE * comb.LANES_PER_BLOCK
+    k4_shape = {"threads_per_lane": comb.THREADS_PER_LANE, "lanes_per_block": comb.LANES_PER_BLOCK,
+                "threads_per_block": k4_threads,
+                "blocks_per_sm": blocks_per_sm(k4p["registers"], k4p["smem_bytes"], k4_threads), **k4p,
+                "comb_build_s": comb_log["seconds"], "comb_build_cached": comb_log["cached"]}
+    log(f"[4] K4 {t['verify_cached'][0]:.4f} ms at {V_MAIN} lanes (the one-thread design, run J: "
+        f"{K4_MS_ONE_THREAD} ms), {k4_rank_ms:.4f} ms at {V_RANK} lanes; {comb.THREADS_PER_LANE} threads a "
+        f"lane, {k4_threads} a block, {k4_shape['blocks_per_sm']} blocks an SM; {k4p['registers']} registers, "
+        f"{k4p.get('stack_bytes', 0)} bytes of stack, {k4p['spill_bytes']} spilled; comb.cu "
+        + ("cached" if comb_log["cached"] else f"built in {comb_log['seconds']:.1f} s")
+        + f"; K3 {comb_ptx.get('build_a_tables')}")
 
     # ---------------------------------------------------- 5. uncached path
     # the commit's 10,000 items with phase 2's planted faults, through the
@@ -2292,6 +2365,7 @@ def main() -> int:
     # bounds from this run's shapes and data
     width = good_payload.shape[1]
     k5_ops = FIELD_MULS_PER_STRAUS * OPS_PER_FIELD_MUL + OPS_PER_SCALAR_REDUCE
+    k4_lane_ops = FIELD_MULS_PER_VERIFY * OPS_PER_FIELD_MUL + OPS_PER_SCALAR_REDUCE
     bound = {
         "parse_verify_payload": (
             "bytes", (V_MAIN * width + V_MAIN * 32 + V_MAIN * nb * 128 + V_MAIN * 4) / HBM_BYTES_PER_S),
@@ -2299,8 +2373,7 @@ def main() -> int:
             "operations", sum_active * OPS_PER_SHA512_BLOCK / INT32_OPS_PER_S),
         "verify_cached": (
             "operations",
-            V_MAIN * (FIELD_MULS_PER_VERIFY * OPS_PER_FIELD_MUL + OPS_PER_SCALAR_REDUCE)
-            / INT32_OPS_PER_S),
+            V_MAIN * k4_lane_ops / INT32_OPS_PER_S),
         "build_a_tables": (
             "operations", V_MAIN * FIELD_MULS_PER_TABLE * OPS_PER_FIELD_MUL / INT32_OPS_PER_S),
         "verify_batch": ("operations", lanes * k5_ops / INT32_OPS_PER_S),
@@ -2375,6 +2448,13 @@ def main() -> int:
                        bound_ms_256=bound["verify_batch_256"][1] * 1e3)
         if name == "merkle_level":  # ms, plain_ms and bound_ms are for one whole tree
             rec.update(launches_per_tree=len(sizes_p), leaves=N_LEAVES, ms_top_level=k8_top_ms)
+        if name == "verify_cached":  # launch shape, ptxas figures, a world-4 rank's shape
+            rec.update(k4_shape, lanes=V_MAIN, lanes_rank=V_RANK, ms_rank=k4_rank_ms,
+                       bound_ms_rank=V_RANK * k4_lane_ops / INT32_OPS_PER_S * 1e3,
+                       field_muls=FIELD_MULS_PER_VERIFY,
+                       # what the group spends (csrc/comb.cu), beside the bound and never in its
+                       # place: its fold's THREADS_PER_LANE - 1 full adds where the function needs one
+                       field_muls_design=FIELD_MULS_PER_VERIFY + (comb.THREADS_PER_LANE - 2) * 9)
         if name in secp_record["secp_kernels"]:  # launch shape and ptxas figures
             rec.update(secp_record["secp_kernels"][name])
         if name == "aggregate_g1":  # ms and bound_ms cover both stages; launches count the tile stage

@@ -13,18 +13,29 @@
 // K4 k4_verify_cached replaces cometbft_tpu/ops/comb.py:484
 // verify_cached (both accumulation orders, :572 and :527) and the
 // packbits / all-ok epilogue of cometbft_tpu/models/comb_verifier.py:767
-// _device_verify.  One thread per signature lane: k = digest mod L,
-// signed radix-16 digits, s < L, R decompression, 64 A-entry and 22
-// B-entry mixed additions, -R, three doublings, identity test.  The
-// TPU's f32 one-hot MXU select becomes a direct indexed load.  Bound:
-// operations — about 1,000 field multiplies per lane against ~3 KB of
-// table reads.  The epilogue packs (ok & live) by warp ballot in
-// numpy.packbits order (lane 0 is bit 7 of byte 0) and counts rows with
-// !(ok | !live) by atomics; the last block to finish writes the all-ok
-// byte.
+// _device_verify.  The TPU's f32 one-hot MXU select becomes a direct
+// indexed load.  Bound on this card: operations — per lane R's
+// decompression (~270 field multiplies), 86 mixed adds of 7, the -R add
+// of 9 and three doublings of 8 (905 multiplies, chip_smoke.py
+// FIELD_MULS_PER_VERIFY) against ~8 KB of table reads.  This design
+// spends 923: its fold adds COMB_T - 1 = 3 full adds where the function
+// needs the one -R add.
+// The first design ran one thread a lane through all ~900 multiplies as
+// one dependent chain: 10,000 lanes filled ~0.6 warps a scheduler and
+// the chain's latency set the time.  This design (comb_verify.cuh) gives
+// a lane COMB_T = 4 threads in four warps of a 128-thread block: warp 0
+// decompresses R for the block's 32 lanes while warps 1-3 add disjoint
+// shares of the 86 table positions, and the partial sums meet in two
+// rounds through shared memory (the JAX tree's fold, :572, on a lane's
+// threads).  10,000 lanes fill ~2.4 warps a scheduler, the longest chain
+// is R's ~300 multiplies, and no warp runs two paths one after the
+// other.  The epilogue packs (ok & live) of a block's 32 lanes in
+// numpy.packbits order (lane 0 is bit 7 of byte 0) into four bytes,
+// counts rows with !(ok | !live) with the block's barrier count and one
+// atomic, and the last block to finish writes the all-ok byte.
 #include <cuda_runtime.h>
 
-#include "comb.cuh"
+#include "comb_verify.cuh"
 
 __global__ void k3_kernel(const uint8_t* __restrict__ pubs,
                           uint32_t* __restrict__ tables,
@@ -38,49 +49,27 @@ __global__ void k3_kernel(const uint8_t* __restrict__ pubs,
   valid[v] = ok ? 1 : 0;
 }
 
-__global__ void k4_kernel(const uint32_t* __restrict__ tables,
-                          const uint8_t* __restrict__ valid,
-                          const uint8_t* __restrict__ payload, int width,
-                          const uint8_t* __restrict__ digest,
-                          const uint32_t* __restrict__ btab,
-                          int* __restrict__ counters, uint8_t* __restrict__ out,
-                          int V) {
-  int v = blockIdx.x * blockDim.x + threadIdx.x;
-  bool in_range = v < V;
-  bool ok = false, live = false;
-  if (in_range) {
-    const uint8_t* row = payload + (size_t)v * width;
-    live = row[67] == 1;
-    ok = comb_verify_lane(tables + (size_t)v * COMB_A_WORDS, valid[v] != 0,
-                          row, row + 32, digest + (size_t)v * 64, btab);
-  }
-  unsigned lane = threadIdx.x & 31;
-  unsigned okmask = __ballot_sync(0xffffffffu, ok && live);
-  unsigned badmask = __ballot_sync(0xffffffffu, in_range && !(ok || !live));
-  int nbytes = (V + 7) / 8;
-  if (lane == 0) {
-    int first_byte = (v - (int)lane) / 8;  // warps start on byte boundaries
-    for (int b = 0; b < 4; b++) {
-      if (first_byte + b < nbytes) {
-        unsigned bits = (okmask >> (8 * b)) & 0xffu;
-        // bit k of `bits` is lane 8b + k; packbits puts it at bit 7 - k
-        unsigned byte = __brev(bits) >> 24;
-        out[first_byte + b] = (uint8_t)byte;
-      }
-    }
-    if (badmask) {
-      atomicAdd(&counters[0], __popc(badmask));
-      __threadfence();
-    }
-  }
-  __syncthreads();
+__global__ void __launch_bounds__(COMB_BLOCK, COMB_MIN_BLOCKS)
+    k4_kernel(const __grid_constant__ K4In in) {
+  __shared__ CombShared sm;
+  __shared__ uint8_t okl[COMB_LANES];
+  comb_grp g;
+  g.t = threadIdx.x / COMB_LANES;  // the warp
+  const int j = threadIdx.x % COMB_LANES;
+  const int v = blockIdx.x * COMB_LANES + j;
+  const bool in_range = v < in.V;
+  const bool ok = comb_group_verify(in, v, in_range, g, sm, j);
+  const bool live = in_range && in.payload[(size_t)v * in.width + 67] == 1;
+  if (g.t == 0) okl[j] = ok && live;
+  const int bad = __syncthreads_count(g.t == 0 && in_range && !(ok || !live));
+  const int nbytes = (in.V + 7) / 8;
+  const int byte = blockIdx.x * (COMB_LANES / 8) + threadIdx.x;
+  if (threadIdx.x < COMB_LANES / 8 && byte < nbytes) in.out[byte] = comb_pack_byte(okl, threadIdx.x);
   if (threadIdx.x == 0) {
+    if (bad) atomicAdd(&in.counters[0], bad);
     __threadfence();
-    int done = atomicAdd(&counters[1], 1);
-    if (done == (int)gridDim.x - 1) {
-      int bad = atomicAdd(&counters[0], 0);
-      out[nbytes] = bad == 0 ? 1 : 0;
-    }
+    const int done = atomicAdd(&in.counters[1], 1);
+    if (done == (int)gridDim.x - 1) in.out[nbytes] = atomicAdd(&in.counters[0], 0) == 0 ? 1 : 0;
   }
 }
 
@@ -105,11 +94,10 @@ extern "C" int k4_verify_cached(const void* tables, const void* valid,
   cudaError_t err = cudaMemsetAsync(counters, 0, 2 * sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
   if (V > 0) {
-    int threads = 64;
-    k4_kernel<<<(V + threads - 1) / threads, threads, 0, s>>>(
-        (const uint32_t*)tables, (const uint8_t*)valid,
-        (const uint8_t*)payload, width, (const uint8_t*)digest,
-        (const uint32_t*)btab, (int*)counters, (uint8_t*)out, V);
+    const K4In in = {(const uint32_t*)tables, (const uint8_t*)valid, (const uint8_t*)payload,
+                     width, (const uint8_t*)digest, (const uint32_t*)btab, (int*)counters,
+                     (uint8_t*)out, V};
+    k4_kernel<<<(V + COMB_LANES - 1) / COMB_LANES, COMB_BLOCK, 0, s>>>(in);
   }
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
-// Per-thread bodies of K3 (comb-table build) and K4 (cached verify),
-// shared by the kernels in comb.cu.
+// The comb tables' layout (read by comb.cu's K3 and K4 and by churn.cu's
+// K6) and K3's per-thread table build.  K4's group algorithm is in
+// comb_verify.cuh.
 //
 // Table layouts (u32 words, canonical little-endian field elements):
 //   A tables  [V][64 positions][8 entries][3 coords][8 words]
@@ -14,7 +15,6 @@
 #pragma once
 
 #include "ge25519.cuh"
-#include "sc25519.cuh"
 
 #define COMB_NPOS_A 64
 #define COMB_NENT_A 8
@@ -22,11 +22,6 @@
 #define COMB_NENT_B 4096
 #define COMB_ENTRY_WORDS 24
 #define COMB_A_WORDS (COMB_NPOS_A * COMB_NENT_A * COMB_ENTRY_WORDS)
-
-DEV void load_words(uint32_t* dst, const uint32_t* src, int n) {
-  UNROLL
-  for (int i = 0; i < n; i++) dst[i] = src[i];
-}
 
 // Build one validator's A table in place.  Pass 1 walks the chain
 // j * 16^i * (-A) in extended coordinates and parks each entry's
@@ -90,64 +85,4 @@ DEV bool comb_build_lane(const uint8_t pub[32], uint32_t* tab, uint32_t* pre) {
     fe_to_words(slot + 16, t);
   }
   return ok;
-}
-
-// Cofactored ZIP-215 verdict of one signature against its validator's
-// cached table: [8](s B + k (-A) - R) == identity, with k = digest mod L,
-// and A valid, R decodable, s < L.
-DEV bool comb_verify_lane(const uint32_t* tab, bool a_valid,
-                          const uint8_t r_enc[32], const uint8_t s_enc[32],
-                          const uint8_t digest[64], const uint32_t* btab) {
-  uint32_t x[16], k[8], s[8];
-  UNROLL
-  for (int i = 0; i < 16; i++) {
-    x[i] = (uint32_t)digest[4 * i] | ((uint32_t)digest[4 * i + 1] << 8) |
-           ((uint32_t)digest[4 * i + 2] << 16) |
-           ((uint32_t)digest[4 * i + 3] << 24);
-  }
-  sc_reduce512(k, x);
-  load_le256_bytes(s, s_enc);
-  bool s_ok = sc_lt_L(s);
-  ge_p3 r;
-  bool r_ok = ge_from_bytes_zip215(r, r_enc);
-
-  ge_p3 acc;
-  ge_identity(acc);
-  uint32_t w[COMB_ENTRY_WORDS];
-  ge_niels n;
-  // A part: signed radix-16 digits of k in [-8, 7], recoded on the fly
-  // (d = nibble + carry; d >= 8 borrows 16 from the next digit; k < 2^253
-  // so the last carry is 0).
-  int carry = 0;
-  NOUNROLL
-  for (int i = 0; i < COMB_NPOS_A; i++) {
-    int d = sc_nibble(k, i) + carry;
-    carry = d >= 8;
-    d -= carry << 4;
-    int ad = d < 0 ? -d : d;
-    if (ad == 0) {
-      ge_niels_identity(n);
-    } else {
-      load_words(w, tab + (i * COMB_NENT_A + ad - 1) * COMB_ENTRY_WORDS,
-                 COMB_ENTRY_WORDS);
-      ge_niels_from_words(n, w, d < 0);
-    }
-    ge_madd(acc, acc, n);
-  }
-  // B part: s in 22 radix-4096 digits, entry 0 is the stored identity.
-  NOUNROLL
-  for (int i = 0; i < COMB_NPOS_B; i++) {
-    int d = sc_digit12(s, i);
-    load_words(w, btab + ((size_t)i * COMB_NENT_B + d) * COMB_ENTRY_WORDS,
-               COMB_ENTRY_WORDS);
-    ge_niels_from_words(n, w, false);
-    ge_madd(acc, acc, n);
-  }
-  ge_p3 nr;
-  ge_neg(nr, r);
-  ge_add(acc, acc, nr);
-  ge_dbl(acc, acc);
-  ge_dbl(acc, acc);
-  ge_dbl(acc, acc);
-  return ge_is_identity(acc) && a_valid && r_ok && s_ok;
 }

@@ -10,12 +10,16 @@ signature table build:
 
     acc = sum_i T[i][k_i] + sum_i B_TAB[i][s_i] - R,   check [8]acc = 0
 
-Kernels (CUDA C++ in csrc/comb.cu, one thread per lane):
+Kernels (CUDA C++ in csrc/comb.cu):
 
-  K3 ``build_a_tables``  replaces cometbft_tpu/ops/comb.py:74
+  K3 ``build_a_tables``  replaces cometbft_tpu/ops/comb.py:74 (one thread
+                         per validator)
   K4 ``verify_cached``   replaces cometbft_tpu/ops/comb.py:484 (tree and
                          sequential accumulation alike) plus the packbits /
-                         all-ok epilogue of models/comb_verifier.py:767
+                         all-ok epilogue of models/comb_verifier.py:767;
+                         THREADS_PER_LANE threads a signature lane
+                         (csrc/comb_verify.cuh), LANES_PER_BLOCK lanes a
+                         block
 
 Each wrapper launches its kernel for a CUDA tensor and runs the plain
 PyTorch version below it for a CPU tensor; ``LAUNCHES`` counts kernel
@@ -45,6 +49,8 @@ NPOS_A = 64  # radix-16 comb positions for the k * (-A) part
 NENT_A = 8  # stored entries 1..8 (signed digits)
 NPOS_B = 22  # radix-4096 comb positions for the s * B part
 NENT_B = 4096
+THREADS_PER_LANE = 4  # K4's group (COMB_T in csrc/comb_verify.cuh)
+LANES_PER_BLOCK = 32  # K4's lanes a block (COMB_LANES)
 
 LAUNCHES = {"build_a_tables": 0, "verify_cached": 0}
 
@@ -340,6 +346,8 @@ def launch_k4(tables, valid_u8, payload, digest, b_tab, counters, out) -> None:
     if V == 0:
         out.fill_(1)
         return
+    if tables.data_ptr() % 16 or b_tab.data_ptr() % 16:
+        raise ValueError("K4 reads table entries as 16-byte vectors: tables and b_tab must be 16-byte aligned")
     code = _build.lib("comb").k4_verify_cached(
         tables.data_ptr(), valid_u8.data_ptr(), payload.data_ptr(), width,
         digest.data_ptr(), b_tab.data_ptr(), counters.data_ptr(), out.data_ptr(),

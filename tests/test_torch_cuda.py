@@ -79,6 +79,92 @@ def test_k3_k4_match_plain(dev, case):
     assert torch.equal(out, comb.pack_verdicts(ok, payload[:, 67] == 1))
 
 
+@pytest.fixture(scope="module")
+def k4_pool(dev):
+    import torch_comb_corpus as C
+
+    from cometbft_tpu_torch.ops import comb
+
+    pool = C.Pool(11)
+    tab, val = comb.build_a_tables(torch.from_numpy(pool.pubs).to(dev))
+    return pool, tab, val, comb.b_tables(dev)
+
+
+def _k4_check(dev, k4_pool, b):
+    """K4 over a batch of tests/torch_comb_corpus.py into an output
+    buffer poisoned with 0xAA: every byte, the all-ok byte too, equals
+    pack_verdicts of the plain version and the corpus's verdicts."""
+    import torch_comb_corpus as C
+
+    from cometbft_tpu_torch.ops import comb
+
+    pool, tab, val, b_tab = k4_pool
+    key = torch.from_numpy(b["key"]).to(dev)
+    payload, digest = torch.from_numpy(b["payload"]).to(dev), torch.from_numpy(b["digest"]).to(dev)
+    V = payload.shape[0]
+    out = torch.full(((V + 7) // 8 + 1,), 0xAA, dtype=torch.uint8, device=dev)
+    cnt = torch.empty((2,), dtype=torch.int32, device=dev)
+    comb.launch_k4(tab[key], val[key].to(torch.uint8), payload, digest, b_tab, cnt, out)
+    want = comb.pack_verdicts(comb.verify_cached_plain(tab[key], val[key], payload, digest, b_tab), payload[:, 67] == 1)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert np.array_equal(out.cpu().numpy(), C.packed_expect(b))
+    return out
+
+
+@pytest.mark.parametrize("V", [1, 8, 9, 33, 70, 257])
+def test_k4_block_edges_match_plain(dev, k4_pool, V):
+    """Failing lanes of every class at warp and block edges, non-live
+    lanes beside valid ones, identity shares and s = 0 lanes."""
+    import torch_comb_corpus as C
+
+    _k4_check(dev, k4_pool, C.batch(k4_pool[0], V, 100 + V))
+
+
+@pytest.mark.parametrize("mode", ["valid", "valid_dead"])
+def test_k4_all_ok_byte(dev, k4_pool, mode):
+    """All-valid lanes, then valid lanes beside failing non-live ones:
+    the all-ok byte is 1 either way."""
+    import torch_comb_corpus as C
+
+    out = _k4_check(dev, k4_pool, C.batch(k4_pool[0], 70, 170, mode))
+    assert int(out[-1]) == 1
+
+
+def test_k4_s_zero_lanes(dev, k4_pool):
+    """Lanes with s = 0 (every B entry the stored identity) alone."""
+    import torch_comb_corpus as C
+
+    b = C.batch(k4_pool[0], 96, 196, "valid")
+    keep = [i for i, (k, _) in enumerate(b["kinds"]) if k == "s_zero"]
+    sub = {k: v[keep] if isinstance(v, np.ndarray) else [v[i] for i in keep] for k, v in b.items()}
+    assert not sub["payload"][:, 32:64].any()
+    out = _k4_check(dev, k4_pool, sub)
+    assert int(out[-1]) == 1
+
+
+def test_k4_refuses_misaligned_tables(dev, k4_pool):
+    """K4 loads table entries as 16-byte vectors: a table view that
+    starts 4 bytes into its storage is refused before any launch."""
+    import torch_comb_corpus as C
+
+    from cometbft_tpu_torch.ops import comb
+
+    pool, tab, val, b_tab = k4_pool
+    b = C.batch(pool, 8, 208)
+    key = torch.from_numpy(b["key"]).to(dev)
+    flat = torch.empty(tab[key].numel() + 1, dtype=torch.int32, device=dev)
+    skewed = flat[1:].view(tab[key].shape)
+    skewed.copy_(tab[key])
+    out = torch.empty((2,), dtype=torch.uint8, device=dev)
+    cnt = torch.empty((2,), dtype=torch.int32, device=dev)
+    before = comb.LAUNCHES["verify_cached"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        comb.launch_k4(skewed, val[key].to(torch.uint8), torch.from_numpy(b["payload"]).to(dev),
+                       torch.from_numpy(b["digest"]).to(dev), b_tab, cnt, out)
+    assert comb.LAUNCHES["verify_cached"] == before
+
+
 def test_k3_on_arbitrary_encodings_matches_plain(dev):
     """Random 32-byte strings as pubkeys (about half decode, y >= p and
     the sign bit included): every table word from K3 equals the plain
