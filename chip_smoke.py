@@ -29,22 +29,29 @@ it and read just after it.
      on every row and the host oracle on the planted rows plus 256
      sampled rows; K4 on block-edge batches of 1-10,001 lanes
      (tests/torch_comb_corpus.py) against the plain version and the
-     corpus's verdicts, output buffers poisoned first;
+     corpus's verdicts, output buffers poisoned first; K3 on edge
+     batches of 1-129 keys (tests/torch_group_corpus.py: off-curve keys
+     at warp and block edges, non-canonical y, identity and small-order
+     keys) against the plain version and the host bigint build;
   4. times of the comb path: the table build, verify_commit p50 with the
      verifier's phase timings (K4 and no K5 launched), each kernel and
      its plain version by CUDA events, peak device memory; K4's time at
-     a world-4 rank's 2,504 lanes, its launch shape (threads a lane and
-     a block, blocks an SM) and ptxas figures (a spill fails), comb.cu's
-     build time;
+     a world-4 rank's 2,504 lanes, K3's and K4's launch shapes (threads
+     a key or lane and a block, blocks an SM) and ptxas figures (a spill
+     fails), comb.cu's build time;
   5. the uncached path: the commit's 10,000 items with the planted faults
      through the Straus verifier (16,384 lanes), K5 against its plain
      version on every lane and the host oracle on the planted rows plus
-     256 sampled rows, p50 over 10 calls, K5's time;
+     256 sampled rows, p50 over 10 calls, K5's time, launch shape and
+     ptxas figures at both group widths (a spill fails); K5 on edge
+     batches of 1-12,289 lanes (tests/torch_group_corpus.py) against the
+     plain version, the host oracle and the corpus's verdicts, output
+     buffers poisoned first;
   6. a validator-set change: 100 of the 10,000 keys replaced; the first
      verify_commit runs uncached (K5, no K4) and starts the background
      churn build (K3 on a 128-key bucket, then K6); its tables against a
      full K3 build; the next verify_commit runs K4; K6 against its plain
-     version and index_copy_, timed;
+     version and index_copy_, timed; K3 at the bucket's 128 keys;
   7. verify_commit_light_trusting (trust 1/3) on a 150-validator set:
      K2 -> K5 at 256 lanes, p50, K5's time at 256 lanes;
   8. demotion: comb batches with a foreign key and with a duplicate key
@@ -145,6 +152,15 @@ ABSENT = [12, 5_000, 8_888]
 N_ORACLE_SAMPLE = 256
 K4_EDGE_SIZES = (1, 7, 8, 9, 31, 33, 257, 10_001)  # K4's block-edge batches (phase 3)
 V_RANK = 2_504  # a world-4 rank's lanes (phase 23): K4 is timed there too
+# K5's edge batches (phase 5); 12,288 and 12,289 lanes straddle its change of group width
+K5_EDGE_SIZES = (1, 3, 7, 8, 9, 31, 33, 255, 256, 257, 12_288, 12_289)
+K3_EDGE_SIZES = (1, 2, 7, 8, 9, 127, 128, 129)  # K3's edge batches (phase 3)
+# Run 9m (this script on an NVIDIA H100 80GB HBM3 at 700 W, before K3's and K5's
+# redesign; PERF.md), printed beside this run's in the logs; never in the kernels line
+RUN_9M = {"K5 16,384 lanes": 3.2597, "K5 256 lanes": 2.9878, "K3 10,000 keys": 9.5967,
+          "K3 128 keys (wrapper)": 7.2884, "uncached p50": 24.86, "light-client p50": 4.53,
+          "set change first call": 160.8, "churn build beside it": 131.6, "churn build alone": 15.8,
+          "peak MiB": 633.6}
 # The one-thread K4's time at 10,000 lanes (this script on an NVIDIA H100 80GB HBM3 at 700 W, before
 # the redesign; PERF.md's run J), printed in phase 4's log beside this run's; never in the kernels line
 K4_MS_ONE_THREAD = 0.7288
@@ -160,6 +176,7 @@ TIMING = {
     "parse_verify_payload": (50, 2, 5, 1),
     "sha512_blocks": (20, 2, 2, 1),
     "build_a_tables": (5, 2, 1, 0),
+    "build_a_tables_128": (20, 2, 2, 1),  # at the churn bucket's 128 keys
     "verify_cached": (10, 2, 1, 1),
     "verify_batch": (10, 2, 1, 0),  # at 16,384 lanes (the plain version once, cold)
     "verify_batch_256": (20, 2, 2, 1),  # at the light client's 256 lanes
@@ -187,6 +204,23 @@ FIELD_MULS_PER_VERIFY = 270 + 86 * 7 + 9 + 3 * 8
 # doubling, 6 cached adds), 64 steps of 4 doublings + a cached add + a
 # mixed add, then -R and 3 doublings
 FIELD_MULS_PER_STRAUS = 2 * 270 + (8 + 8 + 6 * 8) + 64 * (4 * 8 + 8 + 7) + 9 + 3 * 8
+
+
+def straus_muls_design(g: int) -> int:
+    """K5's multiplies a lane as its group of g threads issues them
+    (csrc/straus.cuh), beside the bound's count and never in its place:
+    A and R each decoded on g / 2 threads, every cached conversion's 2d T
+    on all g, the B-window add as a cached add (8, not 7)."""
+    return g * 270 + (8 * g + 8 + 6 * 8) + 64 * (4 * 8 + 8 + 8) + (g + 8 + 3 * 8)
+
+
+def table_muls_design(g: int) -> int:
+    """K3's multiplies a key as its group of g threads issues them
+    (csrc/comb_build.cuh): the decoding and each position's cached
+    conversion on all g threads, 5 doublings and 3 cached adds a
+    position, 3 multiplies an entry forward and 5 back, and on each thread
+    the shares' combine (g + 1), one inversion (265) and one more."""
+    return g * 270 + 64 * (g + 5 * 8 + 3 * 8) + 512 * 3 + g * (g + 1 + 265 + 1) + 512 * 5
 A_ROW_BYTES = 64 * 8 * 3 * 8 * 4  # one validator's comb table
 OPS_PER_SCALAR_REDUCE = (81 + 45) * 4  # K4 Barrett word products, per lane
 # SHA-256, per block, counted from csrc/sha256.cuh: 64 rounds of 26 word
@@ -1725,6 +1759,35 @@ def main() -> int:
     log(f"[3] K3 == plain at V={V_K3_PARITY} (off-curve row invalid, non-canonical-y row "
         "valid); rows 0-7 == host bigint oracle")
 
+    # K3 at the edges of its groups, warps and blocks (tests/torch_group_corpus.py):
+    # off-curve keys at each warp's first and last key and each block's last,
+    # non-canonical y, identity and small-order keys; every size against the
+    # plain version, the host bigint build and the corpus's validity, over
+    # poisoned buffers
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_group_corpus as GC
+
+    gpool = GC.Pool(SEED + 10)
+    for V_e in K3_EDGE_SIZES:
+        kb_ = GC.keys(gpool, V_e, SEED + V_e, 32 // comb.BUILD_THREADS_PER_KEY, comb.BUILD_KEYS_PER_BLOCK)
+        e_pubs = torch.from_numpy(kb_["pubs"]).to(dev)
+        e_tab = torch.full((V_e, 64, 8, 3, 8), -0x55555556, dtype=torch.int32, device=dev)
+        e_val = torch.full((V_e,), 0xAA, dtype=torch.uint8, device=dev)
+        comb.launch_k3(e_pubs, e_tab, e_val)
+        p_tab, p_val = comb.build_a_tables_plain(e_pubs)
+        torch.cuda.synchronize()
+        require(torch.equal(e_tab, p_tab) and torch.equal(e_val, p_val.to(torch.uint8)),
+                f"K3 != plain on the {V_e}-key edge batch")
+        h_tab, h_val = comb.build_a_tables_host(kb_["pubs"])
+        require(np.array_equal(e_tab.cpu().numpy().view(np.uint32), h_tab)
+                and e_val.cpu().numpy().astype(bool).tolist() == h_val.tolist() == kb_["expect"].tolist(),
+                f"K3 != the host bigint build or the corpus on the {V_e}-key edge batch")
+        results["build_a_tables"] = max(results["build_a_tables"], max_abs_err(e_tab, p_tab))
+    del e_tab, p_tab
+    log(f"[3] K3 == plain, the host bigint build and the corpus's validity on edge batches of "
+        f"{K3_EDGE_SIZES} keys (off-curve keys at warp and block edges, non-canonical y, identity and "
+        f"small-order keys), buffers poisoned with 0xAA")
+
     # K4 on the planted commit's payload (all 10,000 rows)
     _, _, blk, act, _ = sha2.parse_verify_payload(payload, entry.pubs)
     digest = sha2.sha512_blocks(blk, act)
@@ -1754,7 +1817,6 @@ def main() -> int:
     # thread's whole share at the identity, s = 0; every size against the plain
     # version and the corpus's verdicts, all-ok byte included, over a poisoned
     # output buffer
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     import torch_comb_corpus as CC
 
     pool = CC.Pool(SEED + 9)
@@ -1818,18 +1880,8 @@ def main() -> int:
     out = torch.empty((V_MAIN // 8 + 1,), dtype=torch.uint8, device=dev)
     cnt = torch.empty((2,), dtype=torch.int32, device=dev)
     valid_u8 = entry.valid.to(torch.uint8)
-    tabs_scratch = (
-        torch.empty((V_MAIN, 64, 8, 3, 8), dtype=torch.int32, device=dev),
-        torch.empty((V_MAIN,), dtype=torch.uint8, device=dev),
-        torch.empty((V_MAIN, 512, 8), dtype=torch.int32, device=dev),
-    )
-    lib = _build.lib("comb")
-
-    def k3_launch():
-        code = lib.k3_build_a_tables(
-            entry.pubs.data_ptr(), tabs_scratch[0].data_ptr(), tabs_scratch[1].data_ptr(),
-            tabs_scratch[2].data_ptr(), V_MAIN, torch.cuda.current_stream().cuda_stream)
-        _build.check(code, "k3")
+    k3_out = (torch.empty((V_MAIN, 64, 8, 3, 8), dtype=torch.int32, device=dev),
+              torch.empty((V_MAIN,), dtype=torch.uint8, device=dev))
 
     sha2.launch_k1(good_payload, entry.pubs, blocks, active)
     sha2.launch_k2(blocks, active, dig)
@@ -1849,7 +1901,7 @@ def main() -> int:
             lambda: comb.verify_cached_plain(entry.tables, entry.valid, good_payload, dig,
                                              entry.b_tables),
         ),
-        "build_a_tables": (k3_launch, None),
+        "build_a_tables": (lambda: comb.launch_k3(entry.pubs, *k3_out), None),
     }
     t = {}
     for name, (kern, plain) in launch.items():
@@ -1864,6 +1916,7 @@ def main() -> int:
     t["build_a_tables"] = (t["build_a_tables"][0], start.elapsed_time(end))
     require(torch.equal(tab_p10k, entry.tables) and torch.equal(val_p10k, entry.valid),
             "main-path tables != plain K3")
+    require(torch.equal(k3_out[0], entry.tables), "the timed K3 launches' tables != the main path's")
     del tab_p10k, val_p10k
     cold_build_ms = cache.last_build_ms
     # a second set in a cache of its own (no churn base): a full, warm K3 build
@@ -1874,7 +1927,8 @@ def main() -> int:
     log(f"[4] table build (V={V_MAIN}, host clock around K3 and a wait on its build stream): "
         f"{cold_build_ms:.1f} ms in the main path (the process's first K3 launch), "
         f"{warm_build_ms:.1f} ms for a second set")
-    log(f"[4] peak device memory on the main path: {peak / 2**20:.1f} MiB")
+    log(f"[4] peak device memory on the main path: {peak / 2**20:.1f} MiB (run 9m: {RUN_9M['peak MiB']} MiB, "
+        f"with K3's V x 16 KB scratch)")
 
     # K4's launch shape and ptxas figures (a spill fails the run), and its
     # time at a world-4 rank's 2,504 lanes beside the 10,000 above
@@ -1885,8 +1939,13 @@ def main() -> int:
     comb_log = _build.BUILD_LOG["comb"]
     comb_ptx = ptxas_kernels(comb_log["ptxas"], lambda line: "verify_cached" if "k4_kernel" in line else
                              "build_a_tables" if "k3_kernel" in line else None)["kernels"]
-    k4p = comb_ptx["verify_cached"]
+    k4p, k3p = comb_ptx["verify_cached"], comb_ptx["build_a_tables"]
     require(k4p.get("spill_bytes", 1) == 0, f"K4 spills: {k4p}")
+    require(k3p.get("spill_bytes", 1) == 0, f"K3 spills: {k3p}")
+    k3_threads = comb.BUILD_THREADS_PER_KEY * comb.BUILD_KEYS_PER_BLOCK
+    k3_shape = {"threads_per_key": comb.BUILD_THREADS_PER_KEY, "keys_per_block": comb.BUILD_KEYS_PER_BLOCK,
+                "threads_per_block": k3_threads,
+                "blocks_per_sm": blocks_per_sm(k3p["registers"], k3p["smem_bytes"], k3_threads), **k3p}
     k4_threads = comb.THREADS_PER_LANE * comb.LANES_PER_BLOCK
     k4_shape = {"threads_per_lane": comb.THREADS_PER_LANE, "lanes_per_block": comb.LANES_PER_BLOCK,
                 "threads_per_block": k4_threads,
@@ -1897,7 +1956,9 @@ def main() -> int:
         f"lane, {k4_threads} a block, {k4_shape['blocks_per_sm']} blocks an SM; {k4p['registers']} registers, "
         f"{k4p.get('stack_bytes', 0)} bytes of stack, {k4p['spill_bytes']} spilled; comb.cu "
         + ("cached" if comb_log["cached"] else f"built in {comb_log['seconds']:.1f} s")
-        + f"; K3 {comb_ptx.get('build_a_tables')}")
+        + f"; K3 {t['build_a_tables'][0]:.4f} ms at {V_MAIN} keys (run 9m: {RUN_9M['K3 10,000 keys']} ms), "
+        f"{comb.BUILD_THREADS_PER_KEY} threads a key, {k3_threads} a block, {k3_shape['blocks_per_sm']} blocks an "
+        f"SM; {k3p['registers']} registers, {k3p.get('stack_bytes', 0)} bytes of stack, {k3p['spill_bytes']} spilled")
 
     # ---------------------------------------------------- 5. uncached path
     # the commit's 10,000 items with phase 2's planted faults, through the
@@ -1957,6 +2018,48 @@ def main() -> int:
     out5 = torch.empty((lanes,), dtype=torch.uint8, device=dev)
     it, wu, _, _ = TIMING["verify_batch"]
     t["verify_batch"] = (cuda_ms(lambda: E.launch_k5(ua, ur, us, udig, bwin, out5), it, wu), plain5_ms)
+
+    # K5 at the edges of its groups, warps and blocks (tests/torch_group_corpus.py):
+    # failing lanes of every class at each warp's first and last lane and each
+    # block's last (s = 0 and s >= L, undecodable R and A, non-canonical y,
+    # small-order A and R, k with zero windows); every size against the plain
+    # version, the host oracle (once a distinct lane) and the corpus's verdicts,
+    # over a poisoned output buffer
+    host_ok = {}
+    for n_e in K5_EDGE_SIZES:
+        lb = GC.lanes(gpool, n_e, SEED + n_e, 32 // E.threads_per_lane(n_e), E.LANES_PER_BLOCK)
+        e_in = [torch.from_numpy(lb[k]).to(dev) for k in ("a", "r", "s", "digest")]
+        e_out = torch.full((n_e,), 0xAA, dtype=torch.uint8, device=dev)
+        E.launch_k5(*e_in, bwin, e_out)
+        e_want = E.verify_digest_plain(*e_in).to(torch.uint8)
+        torch.cuda.synchronize()
+        require(torch.equal(e_out, e_want), f"K5 != plain on the {n_e}-lane edge batch")
+        got = e_out.cpu().numpy().astype(bool).tolist()
+        for v in range(n_e):
+            row = tuple(bytes(lb[k][v]) for k in ("a", "r", "s", "digest"))
+            if row not in host_ok:
+                host_ok[row] = GC.host_verdict(*row)
+            require(got[v] == host_ok[row] == bool(lb["expect"][v]),
+                    f"K5 != the host oracle or the corpus at lane {v} ({lb['kinds'][v]}) of the {n_e}-lane batch")
+        results["verify_batch"] = max(results["verify_batch"], max_abs_err(e_out, e_want))
+    # K5's two instantiations (4 and 2 threads a lane): ptxas figures (a
+    # spill fails) and launch shape
+    ed_log = _build.BUILD_LOG["ed25519"]
+    k5_ptx = ptxas_kernels(ed_log["ptxas"], lambda line: 4 if "k5_kernelILi4E" in line else
+                           2 if "k5_kernelILi2E" in line else None)["kernels"]
+    k5_shapes = {}
+    for g_, k5p in sorted(k5_ptx.items()):
+        require(k5p.get("spill_bytes", 1) == 0, f"K5 at {g_} threads a lane spills: {k5p}")
+        k5_threads = g_ * E.LANES_PER_BLOCK
+        k5_shapes[g_] = {"threads_per_lane": g_, "lanes_per_block": E.LANES_PER_BLOCK,
+                         "threads_per_block": k5_threads,
+                         "blocks_per_sm": blocks_per_sm(k5p["registers"], k5p["smem_bytes"], k5_threads), **k5p}
+    require(sorted(k5_shapes) == [2, 4], f"K5's instantiations in the ptxas report: {sorted(k5_shapes)}")
+    log(f"[5] K5 == plain, the host oracle ({len(host_ok)} distinct lanes) and the corpus's verdicts on edge "
+        f"batches of {K5_EDGE_SIZES} lanes, output buffers poisoned with 0xAA; K5 {t['verify_batch'][0]:.4f} ms "
+        f"at {lanes} lanes (run 9m: {RUN_9M['K5 16,384 lanes']} ms), {E.threads_per_lane(lanes)} threads a lane; "
+        f"launch shapes and ptxas figures {json.dumps(k5_shapes)}; ed25519.cu "
+        + ("cached" if ed_log["cached"] else f"built in {ed_log['seconds']:.1f} s"))
 
     # ---------------------------------------------------- 6. set change
     rng_c = np.random.default_rng(SEED + 1)
@@ -2031,6 +2134,11 @@ def main() -> int:
     t_new, v_new = comb.build_a_tables(bucket_pubs)
     it, wu, _, _ = TIMING["build_a_tables"]
     k3_bucket_ms = cuda_ms(lambda: comb.build_a_tables(bucket_pubs), it, wu)
+    k3b_out = (torch.empty_like(t_new), torch.empty((bucket,), dtype=torch.uint8, device=dev))
+    it, wu, pit, pwu = TIMING["build_a_tables_128"]
+    t["build_a_tables_128"] = (cuda_ms(lambda: comb.launch_k3(bucket_pubs, *k3b_out), it, wu),
+                               cuda_ms(lambda: comb.build_a_tables_plain(bucket_pubs), pit, pwu))
+    require(torch.equal(k3b_out[0], t_new), "K3 into preallocated tables != the bucket's build")
     nr, br, fr = (torch.tensor(x, dtype=torch.int64, device=dev)
                   for x in ([i for i, _ in reuse], [j for _, j in reuse], fresh))
     k6_t, k6_v = cv.assemble_churn(entry.tables, entry.valid, t_new, v_new, nr, br, fr, V_MAIN)
@@ -2062,7 +2170,8 @@ def main() -> int:
     del out6, gathered, zeroed, t_new
     log(f"[6] K6 == plain at V={V_MAIN} ({len(reuse)} reused rows, {len(fresh)} fresh); "
         f"K3 on the {bucket}-key bucket {k3_bucket_ms:.4f} ms by CUDA events (its wrapper's "
-        f"allocations included)")
+        f"allocations included; run 9m: {RUN_9M['K3 128 keys (wrapper)']} ms), the kernel alone "
+        f"{t['build_a_tables_128'][0]:.4f} ms")
 
     # ---------------------------------------------------- 7. light client
     rng_l = np.random.default_rng(SEED + 2)
@@ -2110,7 +2219,8 @@ def main() -> int:
     )
     log(f"[7] light-client trusting check ({V_LIGHT} validators, trust 1/3, 256 lanes): p50 "
         f"{p50_l:.2f} ms over {len(walls_l)} calls (min {min(walls_l):.2f}, max {max(walls_l):.2f}); "
-        f"launches {c_light}; K5 == plain at 256 lanes")
+        f"launches {c_light}; K5 == plain at 256 lanes, {t['verify_batch_256'][0]:.4f} ms (run 9m: "
+        f"{RUN_9M['K5 256 lanes']} ms)")
 
     # ---------------------------------------------------- 8. demotion
     fk = host.PrivKey.from_seed(rng.bytes(32))
@@ -2376,6 +2486,8 @@ def main() -> int:
             V_MAIN * k4_lane_ops / INT32_OPS_PER_S),
         "build_a_tables": (
             "operations", V_MAIN * FIELD_MULS_PER_TABLE * OPS_PER_FIELD_MUL / INT32_OPS_PER_S),
+        "build_a_tables_128": (
+            "operations", bucket * FIELD_MULS_PER_TABLE * OPS_PER_FIELD_MUL / INT32_OPS_PER_S),
         "verify_batch": ("operations", lanes * k5_ops / INT32_OPS_PER_S),
         "verify_batch_256": ("operations", 256 * k5_ops / INT32_OPS_PER_S),
         "assemble_churn": ("bytes", (2 * V_MAIN * A_ROW_BYTES + V_MAIN * 6) / HBM_BYTES_PER_S),
@@ -2390,6 +2502,7 @@ def main() -> int:
         "sha512_blocks": (V_MAIN * nb * 128 + V_MAIN * 4 + V_MAIN * 64) / HBM_BYTES_PER_S,
         "verify_cached": (V_MAIN * 86 * 96 + V_MAIN * (width + 64)) / HBM_BYTES_PER_S,
         "build_a_tables": (V_MAIN * 32 + V_MAIN * 64 * 8 * 96) / HBM_BYTES_PER_S,
+        "build_a_tables_128": (bucket * 32 + bucket * 64 * 8 * 96) / HBM_BYTES_PER_S,
         "verify_batch": lanes * (3 * 32 + 64 + 1) / HBM_BYTES_PER_S,
         "verify_batch_256": 256 * (3 * 32 + 64 + 1) / HBM_BYTES_PER_S,
         "assemble_churn": 0.0,
@@ -2442,10 +2555,21 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": secs * 1e3, "bound_by": by,
             "library_ms": library.get(name),
         }
-        if name == "verify_batch":
-            rec.update(lanes=lanes, ms_256=t["verify_batch_256"][0],
+        if name == "verify_batch":  # launch shapes, ptxas figures, the light client's 256 lanes
+            g_big, g_256 = E.threads_per_lane(lanes), E.threads_per_lane(256)
+            rec.update(k5_shapes[g_big], lanes=lanes, shape_256=k5_shapes[g_256], ms_256=t["verify_batch_256"][0],
                        plain_ms_256=t["verify_batch_256"][1],
-                       bound_ms_256=bound["verify_batch_256"][1] * 1e3)
+                       bound_ms_256=bound["verify_batch_256"][1] * 1e3,
+                       field_muls=FIELD_MULS_PER_STRAUS,
+                       field_muls_design=straus_muls_design(g_big),
+                       field_muls_design_256=straus_muls_design(g_256),
+                       ed25519_build_s=ed_log["seconds"], ed25519_build_cached=ed_log["cached"])
+        if name == "build_a_tables":  # launch shape, ptxas figures, the churn bucket's 128 keys
+            rec.update(k3_shape, keys=V_MAIN, keys_bucket=bucket, ms_bucket=t["build_a_tables_128"][0],
+                       plain_ms_bucket=t["build_a_tables_128"][1],
+                       bound_ms_bucket=bound["build_a_tables_128"][1] * 1e3,
+                       field_muls=FIELD_MULS_PER_TABLE,
+                       field_muls_design=table_muls_design(comb.BUILD_THREADS_PER_KEY))
         if name == "merkle_level":  # ms, plain_ms and bound_ms are for one whole tree
             rec.update(launches_per_tree=len(sizes_p), leaves=N_LEAVES, ms_top_level=k8_top_ms)
         if name == "verify_cached":  # launch shape, ptxas figures, a world-4 rank's shape
@@ -2461,7 +2585,8 @@ def main() -> int:
             rec.update(finish_launches=total_launches["aggregate_g1_finish"],
                        finish_ms=bls_record["bls_k14_finish_ms"], rows=N_BLS)
         kernels.append(rec)
-        for key in (name, "verify_batch_256") if name == "verify_batch" else (name,):
+        extra = {"verify_batch": ("verify_batch_256",), "build_a_tables": ("build_a_tables_128",)}
+        for key in (name, *extra.get(name, ())):
             if key in TIMING:
                 it, wu, pit, pwu = TIMING[key]
             elif key in BLS_TIMING:  # the plain versions once, cold
@@ -2521,6 +2646,14 @@ def main() -> int:
         f"{bls_record['bls_commit_ms']['warm']:.2f} ms; BLS lane {bls_record['bls_lane_s']:.1f} s; "
         f"sharded verify_commit at world 1 p50 {shard_record['sharded_p50_ms']['verify_commit']:.2f} ms; "
         f"sharded phases {shard_record['sharded_phase_s']:.1f} s")
+    log(f"[21] {smi}: beside run 9m (ms) — light-client p50 {p50_l:.2f} ({RUN_9M['light-client p50']}), "
+        f"uncached p50 {p50_u:.2f} ({RUN_9M['uncached p50']}), set change's first call {change_first_ms:.1f} "
+        f"({RUN_9M['set change first call']}), churn build {churn_ms:.1f} beside it "
+        f"({RUN_9M['churn build beside it']}) and {churn_solo_ms:.1f} alone ({RUN_9M['churn build alone']}); "
+        f"K5 {t['verify_batch'][0]:.4f} / {t['verify_batch_256'][0]:.4f} at {lanes} / 256 lanes "
+        f"({RUN_9M['K5 16,384 lanes']} / {RUN_9M['K5 256 lanes']}), K3 {t['build_a_tables'][0]:.4f} / "
+        f"{t['build_a_tables_128'][0]:.4f} at {V_MAIN} / {bucket} keys ({RUN_9M['K3 10,000 keys']} / "
+        f"{RUN_9M['K3 128 keys (wrapper)']} through the wrapper)")
     log(smi)
     log(json.dumps({"kernels": kernels, "verify_commit_p50_ms": p50,
                     "verify_phases_p50_ms": phase_p50, "table_build_cold_ms": cold_build_ms,

@@ -44,8 +44,8 @@ SIGNATURES = {
         "k2_sha512_blocks": [_P, _P, _P, _I, _I, _P],
     },
     "comb": {
-        # pubs, tables, valid, scratch, V, stream
-        "k3_build_a_tables": [_P, _P, _P, _P, _I, _P],
+        # pubs, tables, valid, V, stream
+        "k3_build_a_tables": [_P, _P, _P, _I, _P],
         # tables, valid, payload, width, digest, b_tables, scratch, out, V, stream
         "k4_verify_cached": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P],
     },

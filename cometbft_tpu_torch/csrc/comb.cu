@@ -1,14 +1,25 @@
 // K3 and K4: the comb half of the verify path.
 //
 // K3 k3_build_a_tables replaces cometbft_tpu/ops/comb.py:74
-// build_a_tables: per validator, ZIP-215 decompression of the pubkey
-// (invalid keys build from the identity with valid = 0), negation, the
-// 64-position x 8-entry chain of (j * 16^i) * (-A), and normalisation to
-// canonical affine Niels with ONE batch inversion per validator.  One
-// thread per validator; the table slots double as the chain's scratch
-// and `scratch` (V x 512 x 8 words) holds the running Z products.
-// Bound on this card: operations — about 10,000 field multiplies (1M
-// 32x32->64 products) per validator against 49 KB written.
+// build_a_tables (with _normalize_to_niels, :171): per validator, ZIP-215
+// decompression of the pubkey (invalid keys build from the identity with
+// valid = 0), negation, the 64-position x 8-entry chain of
+// (j * 16^i) * (-A), and normalisation to canonical affine Niels with ONE
+// inversion per validator.  Bound on this card: operations — about 8,660
+// field multiplies (866k 32x32->64 products) per validator against 49 KB
+// written.  The first design ran one thread a validator through all of
+// them as one chain (128 keys took 76% of the time of 10,000) and kept
+// the running Z products in a V x 16 KB global scratch.  This design
+// (comb_build.cuh) gives a validator COMB_BUILD_G = 4 neighbouring
+// threads: the chain's point operations run as group operations (17
+// multiply latencies a position instead of 71: 5 doublings and 3 cached
+// adds, four of the doublings from base to base) and the normalisation is
+// split four ways, each thread a share of the 512 entries with its own
+// running product, the shares meeting by shuffles before the one
+// inversion.  The table slots are the only scratch.  The group spends
+// ~10,600 multiplies a validator (the decompression on every thread, a
+// cached conversion's 2d T on every thread, two more a normalised entry
+// than Montgomery's trick with a stored prefix).
 //
 // K4 k4_verify_cached replaces cometbft_tpu/ops/comb.py:484
 // verify_cached (both accumulation orders, :572 and :527) and the
@@ -35,18 +46,20 @@
 // atomic, and the last block to finish writes the all-ok byte.
 #include <cuda_runtime.h>
 
+#include "comb_build.cuh"
 #include "comb_verify.cuh"
 
-__global__ void k3_kernel(const uint8_t* __restrict__ pubs,
-                          uint32_t* __restrict__ tables,
-                          uint8_t* __restrict__ valid,
-                          uint32_t* __restrict__ scratch, int V) {
-  int v = blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= V) return;
-  bool ok = comb_build_lane(pubs + (size_t)v * 32,
-                            tables + (size_t)v * COMB_A_WORDS,
-                            scratch + (size_t)v * COMB_NPOS_A * COMB_NENT_A * 8);
-  valid[v] = ok ? 1 : 0;
+__global__ void __launch_bounds__(COMB_BUILD_BLOCK, COMB_BUILD_MIN_BLOCKS)
+    k3_kernel(const uint8_t* __restrict__ pubs, uint32_t* __restrict__ tables, uint8_t* __restrict__ valid,
+              int V) {
+  grp_t g;
+  g.t = threadIdx.x % COMB_BUILD_G;
+  const int key = blockIdx.x * COMB_BUILD_KEYS + threadIdx.x / COMB_BUILD_G;
+  const bool live = key < V;
+  const int v = live ? key : V - 1;  // every thread runs: the group's shuffles need it
+  const bool ok = comb_group_build<COMB_BUILD_G>(pubs + (size_t)v * 32, tables + (size_t)v * COMB_A_WORDS,
+                                                 live, g);
+  if (live && g.t == 0) valid[key] = ok ? 1 : 0;
 }
 
 __global__ void __launch_bounds__(COMB_BLOCK, COMB_MIN_BLOCKS)
@@ -73,13 +86,11 @@ __global__ void __launch_bounds__(COMB_BLOCK, COMB_MIN_BLOCKS)
   }
 }
 
-extern "C" int k3_build_a_tables(const void* pubs, void* tables, void* valid,
-                                 void* scratch, int V, void* stream) {
+// tables: V x COMB_A_WORDS words, 16-byte aligned; valid: V bytes.
+extern "C" int k3_build_a_tables(const void* pubs, void* tables, void* valid, int V, void* stream) {
   if (V > 0) {
-    int threads = 64;
-    k3_kernel<<<(V + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)pubs, (uint32_t*)tables, (uint8_t*)valid,
-        (uint32_t*)scratch, V);
+    k3_kernel<<<(V + COMB_BUILD_KEYS - 1) / COMB_BUILD_KEYS, COMB_BUILD_BLOCK, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)pubs, (uint32_t*)tables, (uint8_t*)valid, V);
   }
   return (int)cudaGetLastError();
 }

@@ -12,8 +12,10 @@ signature table build:
 
 Kernels (CUDA C++ in csrc/comb.cu):
 
-  K3 ``build_a_tables``  replaces cometbft_tpu/ops/comb.py:74 (one thread
-                         per validator)
+  K3 ``build_a_tables``  replaces cometbft_tpu/ops/comb.py:74;
+                         BUILD_THREADS_PER_KEY threads a validator
+                         (csrc/comb_build.cuh), BUILD_KEYS_PER_BLOCK
+                         validators a block
   K4 ``verify_cached``   replaces cometbft_tpu/ops/comb.py:484 (tree and
                          sequential accumulation alike) plus the packbits /
                          all-ok epilogue of models/comb_verifier.py:767;
@@ -49,6 +51,8 @@ NPOS_A = 64  # radix-16 comb positions for the k * (-A) part
 NENT_A = 8  # stored entries 1..8 (signed digits)
 NPOS_B = 22  # radix-4096 comb positions for the s * B part
 NENT_B = 4096
+BUILD_THREADS_PER_KEY = 4  # K3's group (COMB_BUILD_G in csrc/comb_build.cuh)
+BUILD_KEYS_PER_BLOCK = 8  # K3's validators a block (COMB_BUILD_KEYS)
 THREADS_PER_LANE = 4  # K4's group (COMB_T in csrc/comb_verify.cuh)
 LANES_PER_BLOCK = 32  # K4's lanes a block (COMB_LANES)
 
@@ -240,14 +244,24 @@ def build_a_tables(a_enc: torch.Tensor):
     dev = a_enc.device
     tables = torch.empty((V, NPOS_A, NENT_A, 3, 8), dtype=torch.int32, device=dev)
     valid = torch.empty((V,), dtype=torch.uint8, device=dev)
-    scratch = torch.empty((V, NPOS_A * NENT_A, 8), dtype=torch.int32, device=dev)
+    launch_k3(a_enc, tables, valid)
+    return tables, valid.bool()
+
+
+def launch_k3(a_enc, tables, valid_u8) -> None:
+    """K3 into preallocated outputs on the current stream: tables
+    (V, 64, 8, 3, 8) int32 (16-byte aligned), valid (V,) uint8."""
+    V = a_enc.shape[0]
+    if V == 0:
+        return
+    if tables.data_ptr() % 16:
+        raise ValueError("K3 writes table entries as 16-byte vectors: tables must be 16-byte aligned")
     code = _build.lib("comb").k3_build_a_tables(
-        a_enc.data_ptr(), tables.data_ptr(), valid.data_ptr(), scratch.data_ptr(),
-        V, torch.cuda.current_stream(dev).cuda_stream,
+        a_enc.data_ptr(), tables.data_ptr(), valid_u8.data_ptr(), V,
+        torch.cuda.current_stream(a_enc.device).cuda_stream,
     )
     _build.check(code, "k3_build_a_tables")
     LAUNCHES["build_a_tables"] += 1
-    return tables, valid.bool()
 
 
 # ------------------------------------------------------------------ K4

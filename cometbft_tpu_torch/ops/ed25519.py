@@ -7,11 +7,15 @@ entries are tuples (y+x, y-x, 2dxy); cached entries are tuples
 (Y+X, Y-X, Z, 2dT).  The formulas, and where they carry to keep the
 multiply's input contract, are the CUDA headers'.
 
-Kernel (CUDA C++ in csrc/ed25519.cu, per-lane body in csrc/straus.cuh):
+Kernel (CUDA C++ in csrc/ed25519.cu, lane body in csrc/straus.cuh):
 
   K5 ``verify_batch``  replaces cometbft_tpu/ops/ed25519.py:339-410
                        (verify_prepared, and verify_batch after its
-                       challenge hash, which is K2 of ops/sha2.py)
+                       challenge hash, which is K2 of ops/sha2.py); a
+                       group of threads_per_lane(n) threads a signature
+                       lane shares each point operation
+                       (csrc/ge25519_group.cuh), LANES_PER_BLOCK lanes a
+                       block
 
 ``verify_batch`` launches K2 then K5 for CUDA tensors and runs the plain
 chain for CPU tensors; ``LAUNCHES`` counts K5 launches.
@@ -32,6 +36,15 @@ from . import scalar, sha2
 NWIN = 64  # radix-16 windows of a 256-bit scalar
 NENT_A = 8  # cached entries j * (-A), j = 1..8 (signed digits of k)
 NENT_B = 16  # B-window entries j * B, j = 0..15 (unsigned windows of s)
+
+LANES_PER_BLOCK = 16  # K5's lanes a block (STRAUS_LANES in csrc/straus.cuh)
+G4_MAX_LANES = 12_288  # K5 runs 4 threads a lane up to this batch, 2 above (STRAUS_G4_MAX_LANES)
+
+
+def threads_per_lane(n: int) -> int:
+    """The group width K5 launches for an n-lane batch."""
+    return 4 if n <= G4_MAX_LANES else 2
+
 
 LAUNCHES = {"verify_batch": 0}
 

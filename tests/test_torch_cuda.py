@@ -222,6 +222,74 @@ def test_k5_matches_plain_and_host_oracle(dev):
     assert got[: len(items)].tolist() == oracle and 0 < sum(oracle) < len(items)
 
 
+@pytest.fixture(scope="module")
+def group_pool(dev):
+    import torch_group_corpus as GC
+
+    return GC.Pool(10)
+
+
+@pytest.mark.parametrize("n", [1, 3, 7, 8, 9, 31, 33, 255, 256, 257, 12_288, 12_289, 16_384])
+def test_k5_group_edges_match_plain(dev, group_pool, n):
+    """K5's groups on tests/torch_group_corpus.py batches (failing lanes
+    of every class at warp and block edges; 4 threads a lane up to
+    12,288 lanes, 2 above, up to the uncached path's 16,384) into a buffer
+    poisoned with 0xAA: every verdict byte equals the plain version's
+    and the corpus's."""
+    import torch_group_corpus as GC
+
+    from cometbft_tpu_torch.ops import ed25519 as E
+
+    b = GC.lanes(group_pool, n, 10 + n, 32 // E.threads_per_lane(n), E.LANES_PER_BLOCK)
+    a, r, s, d = (torch.from_numpy(b[k]).to(dev) for k in ("a", "r", "s", "digest"))
+    out = torch.full((n,), 0xAA, dtype=torch.uint8, device=dev)
+    E.launch_k5(a, r, s, d, E.b_window(dev), out)
+    want = E.verify_digest_plain(a, r, s, d)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want.to(torch.uint8))
+    assert out.cpu().numpy().tolist() == b["expect"].astype(np.uint8).tolist()
+
+
+@pytest.mark.parametrize("V", [1, 2, 7, 8, 9, 127, 128, 129, 10_000])
+def test_k3_group_edges_match_plain(dev, group_pool, V):
+    """K3's groups on tests/torch_group_corpus.py keys (off-curve keys at
+    warp and block edges, non-canonical y, identity and small-order
+    keys; up to 10,000 keys) into buffers poisoned with 0xAA: every
+    table word and valid byte equals the plain version's and the
+    corpus's validity, and the first 16 keys' tables equal the host
+    bigint build's."""
+    import torch_group_corpus as GC
+
+    from cometbft_tpu_torch.ops import comb
+
+    b = GC.keys(group_pool, V, 20 + V, 32 // comb.BUILD_THREADS_PER_KEY, comb.BUILD_KEYS_PER_BLOCK)
+    pubs = torch.from_numpy(b["pubs"]).to(dev)
+    tables = torch.full((V, 64, 8, 3, 8), -0x55555556, dtype=torch.int32, device=dev)
+    valid = torch.full((V,), 0xAA, dtype=torch.uint8, device=dev)
+    comb.launch_k3(pubs, tables, valid)
+    pt, pv = comb.build_a_tables_plain(pubs)
+    torch.cuda.synchronize()
+    assert torch.equal(tables, pt) and torch.equal(valid, pv.to(torch.uint8))
+    assert valid.cpu().numpy().tolist() == b["expect"].astype(np.uint8).tolist()
+    th, _ = comb.build_a_tables_host(b["pubs"][:16])
+    assert np.array_equal(tables[:16].cpu().numpy().view(np.uint32), th)
+
+
+def test_k3_refuses_misaligned_tables(dev):
+    """K3 stores table entries as 16-byte vectors: a table view that
+    starts 4 bytes into its storage is refused before any launch."""
+    from cometbft_tpu_torch.ops import comb
+
+    pubs = torch.zeros((2, 32), dtype=torch.uint8, device=dev)
+    flat = torch.empty(2 * 64 * 8 * 3 * 8 + 1, dtype=torch.int32, device=dev)
+    skewed = flat[1:].view(2, 64, 8, 3, 8)
+    valid = torch.empty((2,), dtype=torch.uint8, device=dev)
+    before = comb.LAUNCHES["build_a_tables"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        comb.launch_k3(pubs, skewed, valid)
+    assert comb.LAUNCHES["build_a_tables"] == before
+
+
 def test_k6_matches_plain(dev):
     """K6 against its plain version on random table words: reused rows
     in a shuffled order, fresh rows from a padded bucket, and one row
