@@ -58,17 +58,19 @@ it and read just after it.
      against the host oracle;
   9. the light client at 10,000 validators, tables warm and the set's
      hash memo dropped before each call: ValidatorSet.hash (K7 once, K8
-     once per level) against hashlib, verify_adjacent and
+     once for the tree) against hashlib, verify_adjacent and
      verify_non_adjacent (trust 1/3; then the comb kernels), a header
      with a flipped validators_hash refused; p50s;
  10. proof serving over 16,384 leaves of 64 bytes, every leaf queried:
-     ProofProver (K7, K8 per level, one K9) and device_multiproof, every
+     ProofProver (K7, one K8, one K9) and device_multiproof, every
      proof equal to proofs_from_byte_slices's byte for byte; p50s and
      the multiproof's dedup factor;
  11. K7-K9 against their plain versions (byte-exact) — K7 on rows of 1-3
-     active blocks with stale bytes, K8 on every level of both trees and
-     on a one-node level whose output row is poisoned first, K9 with -1
-     coordinates — and their times, K9 beside index_select;
+     active blocks with stale bytes, K8 (one launch a tree) on every
+     level of both trees and of trees of 2, 3, 2T - 1, 2T, 2T + 1 and
+     4 T^2 + 1 leaves (T = 256 threads a block) over poisoned rows, each
+     launched twice in a row on one stream (its ticket counter reset), K9
+     with -1 coordinates — and their times, K9 beside index_select;
  12. secp inputs: pools pre-signed with the port's host signers (32
      senders a wire shape x 4 transactions, payloads of 40-97 bytes and
      of 234), replayed into batches of 4,096 CheckTx envelopes with 22
@@ -101,7 +103,12 @@ it and read just after it.
  19. types/validation.verify_commit over a 512-validator BLS set, cold
      (K15) and warm (K14), a tampered commit refused;
  20. K13-K15 against their plain versions on all 10,000 rows (byte-exact
-     ok bytes and triples), their times and the work of the run's data;
+     ok bytes and triples), K15's verdicts against K13's; K15 on
+     block-edge batches of 1-33 rows, rows of order 3 and 11 and warps
+     that all fail before the ladder (tests/torch_bls_corpus.py) against
+     the corpus, K13 and the plain version; their times and the work of
+     the run's data; bls.cu's launch shapes and ptxas figures (a spill
+     fails);
  21. one JSON line with every kernel (rows 23-26 of the kernel table too:
      the sharded entries, their per-rank kernels' bounds summed), then the
      contract line; it runs after phases 22-23:
@@ -182,7 +189,7 @@ TIMING = {
     "verify_batch_256": (20, 2, 2, 1),  # at the light client's 256 lanes
     "assemble_churn": (20, 2, 2, 1),
     "sha256_blocks": (50, 2, 5, 1),  # at the proof tree's 16,384 leaves
-    "merkle_level": (20, 2, 2, 1),  # one tree: all 14 levels of the proof tree
+    "merkle_tree": (20, 2, 2, 1),  # one launch: every level of the proof tree
     "merkle_gather": (50, 2, 5, 1),  # the proofs' 16,384 x 15 coordinates
 }
 
@@ -1097,6 +1104,35 @@ def bls_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_ab
     for aff in affs:
         acc = H._jac_add(H._FP, acc, H._from_affine(H._FP, aff))
     require(B.jac_to_affine_host(*(t_.cpu() for t_ in k14)) == H._to_affine(H._FP, acc), "K14's sum != host sum")
+    # K15 on block-edge batches: every failing class at the first and last
+    # row of each group of 8 rows and each tile's last, rows of order 3 and
+    # 11 (equal, opposite and infinite operands mid-ladder), batches that
+    # all fail before the ladder (tests/torch_bls_corpus.py); ok bytes over
+    # a poisoned buffer against the corpus, K13 and plain
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_bls_corpus as BC
+
+    edge_cases = [("mixed", n) for n in BC.EDGE_SIZES] + [("small", 33), ("prefail", 9)]
+    for mode, n_e in edge_cases:
+        b_e = BC.batch(n_e, SEED + n_e, mode)
+        Xe, Ye, ve = (torch.from_numpy(t_).to(dev) for t_ in BC.pack(b_e))
+        ok_e = torch.full((n_e,), 0xAA, dtype=torch.uint8, device=dev)
+        all_e = torch.ones((1,), dtype=torch.uint8, device=dev)
+        tri_e = torch.empty((B.PT_WORDS,), dtype=torch.int32, device=dev)
+        B.launch_k15(Xe, Ye, ve.to(torch.uint8), ok_e, all_e, B._scratch(n_e, dev), tri_e)
+        p_e = B.validate_aggregate_g1_plain(Xe, Ye, ve)
+        k13_e = B.validate_g1(Xe, Ye, ve)
+        torch.cuda.synchronize()
+        require(ok_e.tolist() == [int(e) for e in b_e["expect"]], f"K15 != the corpus on {mode} {n_e}")
+        require(torch.equal(ok_e.bool(), p_e[0]) and torch.equal(ok_e.bool(), k13_e),
+                f"K15 != plain / K13 on {mode} {n_e}")
+        require(int(all_e) == int(all(b_e["expect"])), f"K15's all-ok byte on {mode} {n_e}")
+        tri_w = (tri_e[:B.NWORDS], tri_e[B.NWORDS:2 * B.NWORDS], tri_e[2 * B.NWORDS:])
+        require(all(torch.equal(g_, w_) for g_, w_ in zip(tri_w, p_e[1:])), f"K15's triple != plain on {mode} {n_e}")
+        results["validate_aggregate_g1"] = max(results["validate_aggregate_g1"], max_abs_err(ok_e, p_e[0]),
+                                               *(max_abs_err(g_, w_) for g_, w_ in zip(tri_w, p_e[1:])))
+    log(f"[20] K15 == the corpus, K13 and plain (ok bytes over 0xAA, the "
+        f"all-ok byte, the triple) on {len(edge_cases)} edge batches: " + ", ".join(f"{m} {n}" for m, n in edge_cases))
     log(f"[20] K13, K15 == plain on all {N_BLS} planted rows (ok bytes and the triple word for word), K13 "
         f"== host oracle on {len(sample)} rows, K15's sum == the host sum of the {sum(live)} valid rows; "
         f"K14 == plain on the {N_BLS} keys, its sum == the host sum; plain ms (once, cold): K13 "
@@ -1132,13 +1168,36 @@ def bls_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_ab
         log(f"[20] {name}: {times[name][0]:.4f} ms ({how}); work {fm} field multiplies")
     H._pairings_product_is_one = real_pairing
 
+    # launch shapes and ptxas figures (a spill anywhere in bls.cu fails)
+    from cometbft_tpu_torch import _build
+
+    def bls_entry(line):
+        for key, kern in (("validate_g1", "k13_kernel"), ("aggregate_g1_finish", "k14_finish_kernel"),
+                          ("aggregate_g1", "k14_kernel"), ("validate_aggregate_g1", "k15_kernel")):
+            if kern in line:
+                return key
+        return None
+
+    rep = ptxas_kernels(_build.BUILD_LOG["bls"]["ptxas"], bls_entry)
+    ptx = rep["kernels"]
+    require(set(ptx) == set(B.LAUNCHES), f"bls.cu's ptxas report names {sorted(ptx)}")
+    for name, f in ptx.items():
+        require(f.get("spill_bytes", 1) == 0, f"{name} spills: {f}")
+    require(rep["any_spill"] == 0, f"a function of bls.cu spills {rep['any_spill']} bytes")
+    threads = {"validate_g1": (1, 32), "aggregate_g1": (1, B.TILE), "aggregate_g1_finish": (1, B.FINISH),
+               "validate_aggregate_g1": (1, B.TILE)}
+    bls_shapes = {name: {"threads_per_row": tr, "rows_per_block": rb,
+                         "blocks_per_sm": blocks_per_sm(ptx[name]["registers"], ptx[name]["smem_bytes"], tr * rb),
+                         **ptx[name]} for name, (tr, rb) in threads.items()}
+    log(f"[20] bls.cu ptxas and launch shapes: {json.dumps(bls_shapes)}")
+
     src = "cometbft_tpu_torch/csrc/bls.cu"
     meta = {
         "validate_g1": ("K13", src, "cometbft_tpu/ops/bls381.py:346", ["bls381_validate_g1"]),
         "aggregate_g1": ("K14", src, "cometbft_tpu/ops/bls381.py:273", ["bls381_aggregate_g1"]),
         "validate_aggregate_g1": ("K15", src, "cometbft_tpu/ops/bls381.py:365", ["bls381_validate_aggregate_g1"]),
     }
-    record = {"bls_rows": N_BLS, "bls_commit_ms": walls, "bls_phases_ms": timings,
+    record = {"bls_rows": N_BLS, "bls_commit_ms": walls, "bls_phases_ms": timings, "bls_shapes": bls_shapes,
               "bls_verify_commit_512_ms": vc, "bls_path_launches": path_counts,
               "bls_k14_finish_ms": finish_ms, "bls_lane_s": time.perf_counter() - t_lane}
     return results, times, bounds, meta, record
@@ -1376,7 +1435,7 @@ def sharded_phases(dev, log, require, zero_counts, read_counts, cuda_ms, d):
         counts["step"] = c = read_counts("sharded_step")
         require(c["sharded_verify_batch"] == 1 and c["sharded_merkle_root"] == 1
                 and c["verify_batch"] == 1 and c["sha512_blocks"] == 1 and c["sha256_blocks"] == 1
-                and c["merkle_level"] == len(Mk.level_sizes(n_leaves)), f"world-1 step launches {c}")
+                and c["merkle_tree"] == 1, f"world-1 step launches {c}")
         errs["sharded_verify_batch"] = max_abs_err(valid, d["k5"])
         require(not bool(ok) and torch.equal(valid, d["k5"].bool()), "world-1 verdicts != phase 5's K5")
         errs["sharded_merkle_root"] = max_abs_err(root, d["flat"][-1])
@@ -1445,11 +1504,9 @@ def sharded_phases(dev, log, require, zero_counts, read_counts, cuda_ms, d):
         return comb.pack_verdicts(ok_, pl[:, 67] == 1)
 
     def plain_tree():
-        offs = Mk.level_offsets(n_leaves)
-        flat = torch.empty((offs[-1] + 1, 32), dtype=torch.uint8, device=dev)
+        flat = torch.empty((Mk.level_offsets(n_leaves)[-1] + 1, 32), dtype=torch.uint8, device=dev)
         flat[:n_leaves] = sha2.sha256_blocks_plain(blocks_p, active_p)
-        for lvl, sz in enumerate(Mk.level_sizes(n_leaves)):
-            Mk.merkle_level_plain(flat, offs[lvl], sz, offs[lvl + 1])
+        Mk.merkle_tree_plain(flat, n_leaves)
         return flat
 
     for name, fn in (("sharded_verify_batch", plain_verify_batch),
@@ -1509,7 +1566,6 @@ def sharded_phases(dev, log, require, zero_counts, read_counts, cuda_ms, d):
                 ranks.append(json.load(f))
     lanes = -(-len(vals.validators) // (8 * N_SHARD_RANKS)) * 8 * N_SHARD_RANKS
     per = lanes // N_SHARD_RANKS
-    depth_rank = len(Mk.level_sizes(n_leaves // N_SHARD_RANKS)) + len(Mk.level_sizes(N_SHARD_RANKS))
     for r, res in enumerate(ranks):
         require(res["lanes"] == [lanes, r * per, per], f"rank {r} lanes {res['lanes']}")
         require(res["build"]["build_a_tables"] == 1, f"rank {r} build launches {res['build']}")
@@ -1522,7 +1578,8 @@ def sharded_phases(dev, log, require, zero_counts, read_counts, cuda_ms, d):
         require(res["per_ok"] and res["bitmap_ok"], f"rank {r} verdicts or bitmap != phase 3's")
         require(res["step_ok"] and res["proofs_ok"], f"rank {r} step or proofs != the one-device results")
         s = res["step"]
-        require(s["verify_batch"] == 1 and s["sha256_blocks"] == 1 and s["merkle_level"] == depth_rank,
+        # one K8 for the rank's subtree, one for the fold of the subtree roots
+        require(s["verify_batch"] == 1 and s["sha256_blocks"] == 1 and s["merkle_tree"] == 2,
                 f"rank {r} step launches {s}")
         require(res["proofs"]["merkle_gather"] == 1, f"rank {r} proof launches {res['proofs']}")
     w4 = {"ranks": N_SHARD_RANKS, "device": ranks[0]["device"], "comm_device": ranks[0]["comm_device"],
@@ -2259,7 +2316,6 @@ def main() -> int:
     new_sh = T.SignedHeader(hdr, good)
     now_ns = (TS_SECONDS + 5) * NS
     cache.ensure(vals.pub_keys_bytes(), device=dev)  # tables warm
-    depth = len(Mk.level_sizes(V_MAIN))
     light_walls, light_counts = {}, {}
     for name, call in (
         ("light_adjacent", lambda: light.verify_adjacent(
@@ -2278,7 +2334,7 @@ def main() -> int:
             walls_.append((time.perf_counter() - t0) * 1e3)
         light_counts[name] = c_ = read_counts(name)
         light_walls[name] = walls_[2:]
-        require(c_["sha256_blocks"] == 12 and c_["merkle_level"] == 12 * depth
+        require(c_["sha256_blocks"] == 12 and c_["merkle_tree"] == 12
                 and c_["merkle_gather"] == 0, f"{name}: {c_}")
         if name != "valset_hash":
             require(c_["verify_cached"] >= 12 and c_["verify_batch"] == 0
@@ -2330,8 +2386,7 @@ def main() -> int:
         proof_walls.append((time.perf_counter() - t0) * 1e3)
     c_proofs = read_counts("proofs")
     require(ok_p and rows_p == host_proofs, "served proofs != proofs_from_byte_slices")
-    depth_p = len(Mk.level_sizes(N_LEAVES))
-    require(c_proofs["sha256_blocks"] == 12 and c_proofs["merkle_level"] == 12 * depth_p
+    require(c_proofs["sha256_blocks"] == 12 and c_proofs["merkle_tree"] == 12
             and c_proofs["merkle_gather"] == 12, f"proof launches {c_proofs}")
     zero_counts()
     for _ in range(12):
@@ -2340,7 +2395,7 @@ def main() -> int:
         multi_walls.append((time.perf_counter() - t0) * 1e3)
     c_multi = read_counts("multiproof")
     require(root_m == host_root and proofs_m == host_proofs, "multiproof != proofs_from_byte_slices")
-    require(c_multi["sha256_blocks"] == 12 and c_multi["merkle_level"] == 12 * depth_p
+    require(c_multi["sha256_blocks"] == 12 and c_multi["merkle_tree"] == 12
             and c_multi["merkle_gather"] == 12, f"multiproof launches {c_multi}")
     p50_proofs = float(np.median(proof_walls[2:]))
     p50_multi = float(np.median(multi_walls[2:]))
@@ -2363,33 +2418,39 @@ def main() -> int:
     torch.cuda.synchronize()
     require(torch.equal(d7, p7), "K7 != plain")
     results["sha256_blocks"] = max_abs_err(d7, p7)
-    # K8 on every level of both trees; K9 with -1 coordinates
-    lvl_checked = 0
+    # K8 (one launch a tree) on every level of both trees, each level over
+    # rows the plain version never wrote; then on trees of one block, of a
+    # partial last block and of stage 2 over more than one chunk of
+    # subtree roots, over poisoned rows, launched twice back to back on
+    # one stream (the second after the first's ticket counter reset)
     stage_v = Mk.stage_leaves([v.bytes() for v in vals.validators], dev)
     stage_p = Mk.stage_leaves(leaves, dev)
     k8_err = 0
     for blocks_, active_ in (stage_v[:2], stage_p[:2]):
         n_ = blocks_.shape[0]
         flat_ = Mk.all_levels(blocks_, active_)
-        offs_ = Mk.level_offsets(n_)
-        for lvl, sz in enumerate(Mk.level_sizes(n_)):
-            want_ = flat_.clone()
-            want_[offs_[lvl + 1] : offs_[lvl + 1] + (sz + 1) // 2] = 0
-            Mk.merkle_level_plain(want_, offs_[lvl], sz, offs_[lvl + 1])
-            k8_err = max(k8_err, max_abs_err(flat_, want_))
-            require(torch.equal(flat_, want_), f"K8 != plain at level {lvl} of {n_} leaves")
-            lvl_checked += 1
-    # a one-node level: K8 copies the node; its output row is poisoned first
-    one = flat_.clone()
-    one[-1] = 0xAA
-    want_one = one.clone()
-    Mk.merkle_level_plain(want_one, 0, 1, one.shape[0] - 1)
-    Mk.merkle_level(one, 0, 1, one.shape[0] - 1)
-    torch.cuda.synchronize()
-    k8_err = max(k8_err, max_abs_err(one, want_one))
-    require(torch.equal(one, want_one) and torch.equal(one[-1], one[0]),
-            "K8 on a one-node level != plain (its poisoned output row was not written)")
-    results["merkle_level"] = k8_err
+        want_ = flat_.clone()
+        want_[n_:] = 0
+        Mk.merkle_tree_plain(want_, n_)
+        k8_err = max(k8_err, max_abs_err(flat_, want_))
+        require(torch.equal(flat_, want_), f"K8 != plain on the {n_}-leaf tree")
+    T8 = Mk.TREE_THREADS
+    k8_sizes = (2, 3, 2 * T8 - 1, 2 * T8, 2 * T8 + 1, 4 * T8 * T8 + 1)
+    for n_ in k8_sizes:
+        rows_ = Mk.level_offsets(n_)[-1] + 1
+        want_ = torch.zeros((rows_, 32), dtype=torch.uint8, device=dev)
+        want_[:n_] = torch.from_numpy(rng_p.integers(0, 256, size=(n_, 32), dtype=np.uint8)).to(dev)
+        twice = [torch.full_like(want_, 0xAA) for _ in range(2)]
+        for f_ in twice:
+            f_[:n_] = want_[:n_]
+        Mk.merkle_tree_plain(want_, n_)
+        for f_ in twice:
+            Mk.merkle_tree(f_, n_)
+        torch.cuda.synchronize()
+        for k, f_ in enumerate(twice):
+            k8_err = max(k8_err, max_abs_err(f_, want_))
+            require(torch.equal(f_, want_), f"K8 launch {k + 1} of 2 != plain on {n_} leaves")
+    results["merkle_tree"] = k8_err
     odd = [sz for sz in Mk.level_sizes(V_MAIN) if sz % 2]
     flat_p = Mk.all_levels(*stage_p[:2])
     require(bytes(flat_p[-1].cpu().numpy()) == host_root, "proof tree root != host")
@@ -2412,31 +2473,29 @@ def main() -> int:
     require(torch.equal(g9p, q9p) and torch.equal(g9p, lib9), "K9 != plain / index_select")
     results["merkle_gather"] = max(max_abs_err(g9, q9), max_abs_err(g9p, q9p))
     log(f"[11] K7 == plain on {N_LEAVES} rows of 1-3 active blocks (stale bytes past each row); "
-        f"K8 == plain on all {lvl_checked} levels of the {V_MAIN}- and {N_LEAVES}-leaf trees "
-        f"and on a one-node level (output row poisoned with 0xAA) "
-        f"(odd levels of the first: {odd}); K9 == plain with {n_missing} coordinates of -1, and "
+        f"K8 (one launch a tree) == plain on every level of the {V_MAIN}- and {N_LEAVES}-leaf trees "
+        f"(odd levels of the first: {odd}) and of {k8_sizes} leaves over rows poisoned with 0xAA, "
+        f"each launched twice back to back; K9 == plain with {n_missing} coordinates of -1, and "
         f"== plain and index_select on the proofs' {pc_flat.shape[0]} coordinates")
     # times at the proof path's shapes
     blocks_p, active_p = stage_p[:2]
-    offs_p, sizes_p = Mk.level_offsets(N_LEAVES), Mk.level_sizes(N_LEAVES)
+    sizes_p = Mk.level_sizes(N_LEAVES)
     flat_t = torch.empty_like(flat_p)
     sha2.launch_k7(blocks_p, active_p, flat_t)
     sum_active7 = int(active_p.sum())
 
     def k8_tree():
-        for lvl, sz in enumerate(sizes_p):
-            Mk.merkle_level(flat_t, offs_p[lvl], sz, offs_p[lvl + 1])
+        Mk.merkle_tree(flat_t, N_LEAVES)
 
     def k8_tree_plain():
-        for lvl, sz in enumerate(sizes_p):
-            Mk.merkle_level_plain(flat_t, offs_p[lvl], sz, offs_p[lvl + 1])
+        Mk.merkle_tree_plain(flat_t, N_LEAVES)
 
     out9 = torch.empty((pc_flat.shape[0], 32), dtype=torch.uint8, device=dev)
     timed7 = torch.empty((N_LEAVES, 32), dtype=torch.uint8, device=dev)
     for name, kern, plain in (
         ("sha256_blocks", lambda: sha2.launch_k7(blocks_p, active_p, timed7),
          lambda: sha2.sha256_blocks_plain(blocks_p, active_p)),
-        ("merkle_level", k8_tree, k8_tree_plain),
+        ("merkle_tree", k8_tree, k8_tree_plain),
         ("merkle_gather", lambda: Mk.launch_k9(flat_p, pc_flat, out9),
          lambda: Mk.merkle_gather_plain(flat_p, pc_flat)),
     ):
@@ -2445,7 +2504,9 @@ def main() -> int:
     require(torch.equal(flat_t, flat_p), "the timed tree != the proof tree")
     it, wu, _, _ = TIMING["merkle_gather"]
     lib9_ms = cuda_ms(lambda: torch.index_select(flat_p, 0, pc_flat, out=out9), it, wu)
-    k8_top_ms = cuda_ms(lambda: Mk.merkle_level(flat_t, 0, N_LEAVES, offs_p[1]), 20, 2)
+    # the 10,000-leaf tree of ValidatorSet.hash
+    flat_v = Mk.all_levels(*stage_v[:2])
+    k8_valset_ms = cuda_ms(lambda: Mk.merkle_tree(flat_v, V_MAIN), *TIMING["merkle_tree"][:2])
 
     # ---------------------------------------------------- 12-15. the secp lane
     secp_results, secp_t, secp_bound, secp_meta, secp_record = secp_phases(
@@ -2492,7 +2553,7 @@ def main() -> int:
         "verify_batch_256": ("operations", 256 * k5_ops / INT32_OPS_PER_S),
         "assemble_churn": ("bytes", (2 * V_MAIN * A_ROW_BYTES + V_MAIN * 6) / HBM_BYTES_PER_S),
         "sha256_blocks": ("operations", sum_active7 * OPS_PER_SHA256_BLOCK / INT32_OPS_PER_S),
-        "merkle_level": (
+        "merkle_tree": (
             "operations", sum(sz // 2 for sz in sizes_p) * 2 * OPS_PER_SHA256_BLOCK / INT32_OPS_PER_S),
         "merkle_gather": ("bytes", pc_flat.shape[0] * (4 + 32 + 32) / HBM_BYTES_PER_S),
     }
@@ -2507,7 +2568,7 @@ def main() -> int:
         "verify_batch_256": 256 * (3 * 32 + 64 + 1) / HBM_BYTES_PER_S,
         "assemble_churn": 0.0,
         "sha256_blocks": (blocks_p.numel() + N_LEAVES * 4 + N_LEAVES * 32) / HBM_BYTES_PER_S,
-        "merkle_level": sum(sz * 32 + (sz + 1) // 2 * 32 for sz in sizes_p) / HBM_BYTES_PER_S,
+        "merkle_tree": sum(sz * 32 + (sz + 1) // 2 * 32 for sz in sizes_p) / HBM_BYTES_PER_S,
         "merkle_gather": 0.0,
     }
     meta = {
@@ -2527,7 +2588,7 @@ def main() -> int:
                            "cometbft_tpu/models/comb_verifier.py:391", ["comb_assemble_churn"]),
         "sha256_blocks": ("K7", "cometbft_tpu_torch/csrc/merkle.cu",
                           "cometbft_tpu/ops/sha2.py:81", ["sha256_blocks"]),
-        "merkle_level": ("K8", "cometbft_tpu_torch/csrc/merkle.cu",
+        "merkle_tree": ("K8", "cometbft_tpu_torch/csrc/merkle.cu",
                          "cometbft_tpu/ops/merkle.py:47",
                          ["merkle_root_from_leaves", "merkle_proofs_from_leaves",
                           "merkle_multiproof_from_leaves"]),
@@ -2570,8 +2631,11 @@ def main() -> int:
                        bound_ms_bucket=bound["build_a_tables_128"][1] * 1e3,
                        field_muls=FIELD_MULS_PER_TABLE,
                        field_muls_design=table_muls_design(comb.BUILD_THREADS_PER_KEY))
-        if name == "merkle_level":  # ms, plain_ms and bound_ms are for one whole tree
-            rec.update(launches_per_tree=len(sizes_p), leaves=N_LEAVES, ms_top_level=k8_top_ms)
+        if name == "merkle_tree":  # ms, plain_ms and bound_ms are for one whole tree, one launch
+            rec.update(launches_per_tree=1, levels=len(sizes_p), leaves=N_LEAVES, threads_per_block=T8,
+                       ms_valset=k8_valset_ms, leaves_valset=V_MAIN,
+                       bound_ms_valset=sum(sz // 2 for sz in Mk.level_sizes(V_MAIN)) * 2
+                       * OPS_PER_SHA256_BLOCK / INT32_OPS_PER_S * 1e3)
         if name == "verify_cached":  # launch shape, ptxas figures, a world-4 rank's shape
             rec.update(k4_shape, lanes=V_MAIN, lanes_rank=V_RANK, ms_rank=k4_rank_ms,
                        bound_ms_rank=V_RANK * k4_lane_ops / INT32_OPS_PER_S * 1e3,
@@ -2581,6 +2645,8 @@ def main() -> int:
                        field_muls_design=FIELD_MULS_PER_VERIFY + (comb.THREADS_PER_LANE - 2) * 9)
         if name in secp_record["secp_kernels"]:  # launch shape and ptxas figures
             rec.update(secp_record["secp_kernels"][name])
+        if name in bls_record["bls_shapes"]:  # launch shape and ptxas figures
+            rec.update(bls_record["bls_shapes"][name])
         if name == "aggregate_g1":  # ms and bound_ms cover both stages; launches count the tile stage
             rec.update(finish_launches=total_launches["aggregate_g1_finish"],
                        finish_ms=bls_record["bls_k14_finish_ms"], rows=N_BLS)
@@ -2604,7 +2670,7 @@ def main() -> int:
     # rows 23-26: per-rank kernels plus collectives, timed at world 1 (NCCL)
     # on the main path's shapes; each bound is the sum of its kernels' bounds
     k2_16k = int(uact.sum()) * OPS_PER_SHA512_BLOCK / INT32_OPS_PER_S
-    tree_bound = bound["sha256_blocks"][1] + bound["merkle_level"][1]
+    tree_bound = bound["sha256_blocks"][1] + bound["merkle_tree"][1]
     shard_rows = {
         "sharded_verify_batch": (
             "row 23", ":71", "K2 -> K5 per rank; all_reduce(SUM) + all_gather",

@@ -60,8 +60,8 @@ SIGNATURES = {
     "merkle": {
         # blocks, active, digest, n, nblocks, stream
         "k7_sha256_blocks": [_P, _P, _P, _I, _I, _P],
-        # flat, in_off, n, out_off, stream
-        "k8_merkle_level": [_P, _I, _I, _I, _P],
+        # flat, n, counter, stream
+        "k8_merkle_tree": [_P, _I, _P, _P],
         # flat, coord, out, k, nnodes, stream
         "k9_merkle_gather": [_P, _P, _P, _I, _I, _P],
     },

@@ -4,7 +4,7 @@ crypto/merkle/tree.go, proof.go, proof_op.go, proof_key_path.go).
 
 The host half (hashlib) is as in the JAX package.  The device routes run
 on the card through ops/merkle.py: K7 hashes the leaves, one K8 launch
-hashes each level, and K9 gathers proof nodes.
+hashes every level above them, and K9 gathers proof nodes.
 
 ``device`` on the routes that may take either (hash_from_byte_slices):
 
@@ -262,7 +262,7 @@ def _proofs_from_rows(total: int, indices, sib: np.ndarray, rows: np.ndarray) ->
 
 def device_proofs_from_byte_slices(items: list[bytes], indices: list[int], device="cuda"):
     """Inclusion proofs for the queried indices through the kernels on
-    ``device``: K7, one K8 per level, then ONE K9 launch gathering every
+    ``device``: K7, one K8 for the tree, then ONE K9 launch gathering every
     leaf hash and audit node (ops/merkle ``nodes_from_leaves``).  Returns
     (root, [Proof, ...]), byte for byte what proofs_from_byte_slices
     gives."""
@@ -278,7 +278,7 @@ def device_proofs_from_byte_slices(items: list[bytes], indices: list[int], devic
 
 def device_multiproof(items: list[bytes], indices: list[int], device="cuda"):
     """Many indices against one tree with every shared node gathered once
-    (ops/merkle ``nodes_from_leaves``): K7, one K8 per level, one K9
+    (ops/merkle ``nodes_from_leaves``): K7, one K8 for the tree, one K9
     over the deduplicated coordinates; the per-query Proofs are put back
     together on the host.  Returns (root, proofs, dedup factor = naive
     gather slots / unique nodes)."""

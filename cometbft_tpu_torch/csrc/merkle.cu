@@ -7,16 +7,18 @@
 // Bound on this card: operations — 2,296 word operations per block
 // against 64 bytes read.
 //
-// K8 k8_merkle_level replaces cometbft_tpu/ops/merkle.py:47 hash_level
-// (with _inner_blocks, :38): one thread per output node of one level.  It
-// reads the pair (2i, 2i + 1) of level l from the flat node tensor (every
-// level, level 0 first, at the offsets of crypto/merkle.multiproof_plan),
-// builds 0x01 || L || R and its padding as two blocks of words in
-// registers, and writes the digest into level l + 1 of the same tensor;
-// the thread of an odd trailing node copies it unchanged (a one-node
-// level included).  One launch per level.  Bound: operations (two
-// compressions per pair) — but the upper levels hold a few nodes each,
-// so a tree's 14 launches are bound by launch latency on this card.
+// K8 k8_merkle_tree replaces cometbft_tpu/ops/merkle.py:47 hash_level
+// (with _inner_blocks, :38) over every level of one tree, as :67
+// root_from_leaf_hashes loops it: ONE launch a tree writes every level
+// above level 0 into the flat node tensor (level 0 first, at the offsets
+// of ops/merkle.py level_offsets), so K9 and the proof routes read every
+// level.  Stage 1: a block of MERKLE_TREE_THREADS threads reduces its
+// span of 2T leaves in shared memory, a thread a pair; stage 2: the last
+// block to finish (a ticket counter, reset by that block) reduces the
+// subtree roots (merkle_tree.cuh).  Bound: operations (two compressions
+// a pair); the chain of ceil(log2 n) levels of two dependent
+// compressions sets the time, which the earlier launch a level spent on
+// launch latency.
 //
 // K9 k9_merkle_gather replaces cometbft_tpu/ops/merkle.py:117
 // _onehot_gather (an f32 one-hot MXU matmul, a TPU workaround): out[k] =
@@ -27,7 +29,7 @@
 // cudaGetLastError().
 #include <cuda_runtime.h>
 
-#include "sha256.cuh"
+#include "merkle_tree.cuh"
 
 __global__ void k7_kernel(const uint8_t* __restrict__ blocks,
                           const int32_t* __restrict__ active,
@@ -38,12 +40,22 @@ __global__ void k7_kernel(const uint8_t* __restrict__ blocks,
              nblocks, active[v]);
 }
 
-__global__ void k8_kernel(uint8_t* __restrict__ flat, int in_off, int n,
-                          int out_off) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (n + 1) / 2) return;
-  merkle_level_node(flat + ((size_t)out_off + i) * 32,
-                    flat + (size_t)in_off * 32, n, i);
+template <int T>
+__global__ void __launch_bounds__(T) k8_kernel(uint8_t* flat, int n, int* counter) {
+  __shared__ MtShared<T> sm;
+  __shared__ bool last;
+  mt_stage1<T>(flat, n, blockIdx.x, sm);
+  if (gridDim.x == 1) return;
+  __threadfence();  // this block's subtree root before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(counter, 1) == (int)gridDim.x - 1;
+    if (last) *counter = 0;  // every ticket drawn: ready for the next launch
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  mt_stage2<T>(flat, n, sm);
 }
 
 __global__ void k9_kernel(const uint4* __restrict__ flat,
@@ -71,15 +83,13 @@ extern "C" int k7_sha256_blocks(const void* blocks, const void* active,
   return (int)cudaGetLastError();
 }
 
-extern "C" int k8_merkle_level(void* flat, int in_off, int n, int out_off,
-                               void* stream) {
-  int m = (n + 1) / 2;
-  // n = 1 launches too: its one thread copies the node into the parent
-  // level, as hash_level returns a one-node level unchanged
-  if (n > 0) {
-    int threads = 128;
-    k8_kernel<<<(m + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        (uint8_t*)flat, in_off, n, out_off);
+// flat: the tree's nodes, level 0 filled; counter: one int32, 0 between
+// launches (the last block resets it), used by one stream at a time.  A
+// one-leaf tree has no level to hash and launches nothing.
+extern "C" int k8_merkle_tree(void* flat, int n, void* counter, void* stream) {
+  if (n > 1) {
+    const int T = MERKLE_TREE_THREADS, blocks = (int)(((long long)n + 2 * T - 1) / (2 * T));
+    k8_kernel<T><<<blocks, T, 0, (cudaStream_t)stream>>>((uint8_t*)flat, n, (int*)counter);
   }
   return (int)cudaGetLastError();
 }

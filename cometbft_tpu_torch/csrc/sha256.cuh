@@ -1,5 +1,5 @@
-// Per-thread bodies of K7 (batched SHA-256), K8 (one Merkle tree level)
-// and K9 (node gather), shared by the kernels in merkle.cu.
+// SHA-256 for K7 (batched rows) and K8 (RFC-6962 inner nodes,
+// merkle_tree.cuh), shared by the kernels in merkle.cu.
 #pragma once
 
 #include "common.cuh"
@@ -129,24 +129,4 @@ DEV void merkle_inner(uint32_t st[8], const uint32_t l[8], const uint32_t r[8]) 
   for (int j = 1; j < 15; j++) w[j] = 0;
   w[15] = 65 * 8;
   sha256_compress(st, w);
-}
-
-// Output node i of a level of n nodes stored at `in` (32 bytes each,
-// 16-byte aligned): the inner hash of nodes 2i and 2i + 1, or node 2i
-// unchanged when it is the odd trailing node.
-DEV void merkle_level_node(uint8_t out[32], const uint8_t* in, int n, int i) {
-  const uint32_t* left = (const uint32_t*)(in + (size_t)(2 * i) * 32);
-  if (2 * i + 1 >= n) {
-    UNROLL
-    for (int k = 0; k < 8; k++) ((uint32_t*)out)[k] = LDG(left + k);
-    return;
-  }
-  uint32_t l[8], r[8], st[8];
-  UNROLL
-  for (int k = 0; k < 8; k++) {
-    l[k] = bswap32(LDG(left + k));
-    r[k] = bswap32(LDG(left + 8 + k));
-  }
-  merkle_inner(st, l, r);
-  sha256_store(out, st);
 }

@@ -409,11 +409,12 @@ def launch_k6(base_tables, base_valid, new_tables, new_valid, src, tables, valid
     for t in (base_tables, new_tables, tables):
         if t.data_ptr() % 16:
             raise ValueError("K6 needs 16-byte aligned tables")
-    code = _build.lib("churn").k6_assemble_churn(
-        base_tables.data_ptr(), base_valid.data_ptr(), new_tables.data_ptr(),
-        new_valid.data_ptr(), src.data_ptr(), tables.data_ptr(), valid.data_ptr(),
-        src.shape[0], torch.cuda.current_stream(tables.device).cuda_stream,
-    )
+    with torch.cuda.device(tables.device):
+        code = _build.lib("churn").k6_assemble_churn(
+            base_tables.data_ptr(), base_valid.data_ptr(), new_tables.data_ptr(),
+            new_valid.data_ptr(), src.data_ptr(), tables.data_ptr(), valid.data_ptr(),
+            src.shape[0], torch.cuda.current_stream(tables.device).cuda_stream,
+        )
     _build.check(code, "k6_assemble_churn")
     LAUNCHES["assemble_churn"] += 1
 
@@ -596,7 +597,7 @@ class CombBatchVerifier:
                 host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
                 host.copy_(out, non_blocking=True)
                 done = torch.cuda.Event()
-                done.record()
+                done.record(torch.cuda.current_stream(out.device))
             else:
                 host, done = out, None
         except BaseException:

@@ -3,8 +3,8 @@ from cometbft_tpu/models/proof_server.py.
 
 Light-client fan-out is many tiny read-only queries — "prove leaf i of
 tree T" — and the device answer is one pass per tree, however many
-queries coalesced against it: K7 hashes the leaves, one K8 launch each
-level, and one K9 launch gathers every audit path
+queries coalesced against it: K7 hashes the leaves, one K8 launch the
+levels above them, and one K9 launch gathers every audit path
 (crypto/merkle.device_proofs_from_byte_slices).
 
   - a query is an item triple ``(tree_digest, index_be8, b"")``, the
@@ -181,7 +181,7 @@ class CpuProofProver:
 class ProofProver:
     """Device proof plane (the JAX package's TpuProofProver): each tree
     with at least proof_device_min() queries is answered by K7, one K8
-    per level and one K9 on ``device``; trees with fewer on the host."""
+    for the tree and one K9 on ``device``; trees with fewer on the host."""
 
     def __init__(self, device="cuda") -> None:
         self._dev = resolve_device(device)

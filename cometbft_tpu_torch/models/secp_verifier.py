@@ -378,7 +378,7 @@ class SecpBatchVerifier:
             host = torch.empty((n,), dtype=torch.bool, pin_memory=True)
             host.copy_(ok, non_blocking=True)
             done = torch.cuda.Event()
-            done.record()
+            done.record(torch.cuda.current_stream(ok.device))
         else:
             host, done = ok, None
         timings["h2d_dispatch_ms"] = (time.perf_counter() - t1) * 1e3

@@ -135,7 +135,7 @@ class Ed25519BatchVerifier:
             host = torch.empty((n,), dtype=torch.bool, pin_memory=True)
             host.copy_(ok, non_blocking=True)
             done = torch.cuda.Event()
-            done.record()
+            done.record(torch.cuda.current_stream(ok.device))
         else:
             host, done = ok, None
         t2 = time.perf_counter()

@@ -461,16 +461,18 @@ def _stream(dev):
 def launch_k13(X, Y, valid, ok, all_ok) -> None:
     """K13 into ``ok`` ((N,) uint8) and ``all_ok`` ((1,) uint8, set to 1
     by the caller); all CUDA tensors."""
-    code = _build.lib("bls").k13_bls_validate(
-        X.data_ptr(), Y.data_ptr(), valid.data_ptr(), ok.data_ptr(), all_ok.data_ptr(),
-        X.shape[0], _stream(X.device))
+    with torch.cuda.device(X.device):
+        code = _build.lib("bls").k13_bls_validate(
+            X.data_ptr(), Y.data_ptr(), valid.data_ptr(), ok.data_ptr(), all_ok.data_ptr(),
+            X.shape[0], _stream(X.device))
     _build.check(code, "k13_bls_validate")
     LAUNCHES["validate_g1"] += 1
 
 
 def _launch_finish(partials, g: int, triple) -> None:
-    code = _build.lib("bls").k14_bls_aggregate_finish(partials.data_ptr(), g, triple.data_ptr(),
-                                                      _stream(partials.device))
+    with torch.cuda.device(partials.device):
+        code = _build.lib("bls").k14_bls_aggregate_finish(partials.data_ptr(), g, triple.data_ptr(),
+                                                          _stream(partials.device))
     _build.check(code, "k14_bls_aggregate_finish")
     LAUNCHES["aggregate_g1_finish"] += 1
 
@@ -479,8 +481,9 @@ def launch_k14(X, Y, Z, partials, triple) -> None:
     """K14's two stages: tile partials into ``partials`` ((ceil(N /
     TILE), 36) int32 scratch), the sum into ``triple`` ((36,) int32)."""
     n = X.shape[0]
-    code = _build.lib("bls").k14_bls_aggregate(X.data_ptr(), Y.data_ptr(), Z.data_ptr(),
-                                               partials.data_ptr(), n, _stream(X.device))
+    with torch.cuda.device(X.device):
+        code = _build.lib("bls").k14_bls_aggregate(X.data_ptr(), Y.data_ptr(), Z.data_ptr(),
+                                                   partials.data_ptr(), n, _stream(X.device))
     _build.check(code, "k14_bls_aggregate")
     LAUNCHES["aggregate_g1"] += 1
     _launch_finish(partials, -(-n // TILE), triple)
@@ -490,9 +493,10 @@ def launch_k15(X, Y, valid, ok, all_ok, partials, triple) -> None:
     """K15 (ok bytes, all-ok byte, tile partials of the rows that
     validated), then K14's finishing stage into ``triple``."""
     n = X.shape[0]
-    code = _build.lib("bls").k15_bls_validate_aggregate(
-        X.data_ptr(), Y.data_ptr(), valid.data_ptr(), ok.data_ptr(), all_ok.data_ptr(),
-        partials.data_ptr(), n, _stream(X.device))
+    with torch.cuda.device(X.device):
+        code = _build.lib("bls").k15_bls_validate_aggregate(
+            X.data_ptr(), Y.data_ptr(), valid.data_ptr(), ok.data_ptr(), all_ok.data_ptr(),
+            partials.data_ptr(), n, _stream(X.device))
     _build.check(code, "k15_bls_validate_aggregate")
     LAUNCHES["validate_aggregate_g1"] += 1
     _launch_finish(partials, -(-n // TILE), triple)

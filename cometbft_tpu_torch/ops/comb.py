@@ -256,10 +256,11 @@ def launch_k3(a_enc, tables, valid_u8) -> None:
         return
     if tables.data_ptr() % 16:
         raise ValueError("K3 writes table entries as 16-byte vectors: tables must be 16-byte aligned")
-    code = _build.lib("comb").k3_build_a_tables(
-        a_enc.data_ptr(), tables.data_ptr(), valid_u8.data_ptr(), V,
-        torch.cuda.current_stream(a_enc.device).cuda_stream,
-    )
+    with torch.cuda.device(a_enc.device):
+        code = _build.lib("comb").k3_build_a_tables(
+            a_enc.data_ptr(), tables.data_ptr(), valid_u8.data_ptr(), V,
+            torch.cuda.current_stream(a_enc.device).cuda_stream,
+        )
     _build.check(code, "k3_build_a_tables")
     LAUNCHES["build_a_tables"] += 1
 
@@ -362,10 +363,11 @@ def launch_k4(tables, valid_u8, payload, digest, b_tab, counters, out) -> None:
         return
     if tables.data_ptr() % 16 or b_tab.data_ptr() % 16:
         raise ValueError("K4 reads table entries as 16-byte vectors: tables and b_tab must be 16-byte aligned")
-    code = _build.lib("comb").k4_verify_cached(
-        tables.data_ptr(), valid_u8.data_ptr(), payload.data_ptr(), width,
-        digest.data_ptr(), b_tab.data_ptr(), counters.data_ptr(), out.data_ptr(),
-        V, torch.cuda.current_stream(payload.device).cuda_stream,
-    )
+    with torch.cuda.device(payload.device):
+        code = _build.lib("comb").k4_verify_cached(
+            tables.data_ptr(), valid_u8.data_ptr(), payload.data_ptr(), width,
+            digest.data_ptr(), b_tab.data_ptr(), counters.data_ptr(), out.data_ptr(),
+            V, torch.cuda.current_stream(payload.device).cuda_stream,
+        )
     _build.check(code, "k4_verify_cached")
     LAUNCHES["verify_cached"] += 1

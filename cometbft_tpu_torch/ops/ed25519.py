@@ -329,11 +329,12 @@ def launch_k5(a_enc, r_enc, s_bytes, digest, bwin, out) -> None:
     n = a_enc.shape[0]
     if n == 0:
         return
-    code = _build.lib("ed25519").k5_verify_batch(
-        a_enc.data_ptr(), r_enc.data_ptr(), s_bytes.data_ptr(), digest.data_ptr(),
-        bwin.data_ptr(), out.data_ptr(), n,
-        torch.cuda.current_stream(a_enc.device).cuda_stream,
-    )
+    with torch.cuda.device(a_enc.device):
+        code = _build.lib("ed25519").k5_verify_batch(
+            a_enc.data_ptr(), r_enc.data_ptr(), s_bytes.data_ptr(), digest.data_ptr(),
+            bwin.data_ptr(), out.data_ptr(), n,
+            torch.cuda.current_stream(a_enc.device).cuda_stream,
+        )
     _build.check(code, "k5_verify_batch")
     LAUNCHES["verify_batch"] += 1
 

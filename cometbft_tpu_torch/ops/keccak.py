@@ -140,11 +140,12 @@ def launch_k10(blocks, active, digest) -> None:
     """K10 into a preallocated (N, 32) digest on the current stream."""
     if blocks.data_ptr() % 8 or digest.data_ptr() % 8:
         raise ValueError("K10 loads and stores 8-byte lanes: blocks and digest must be 8-byte aligned")
-    code = _build.lib("keccak").k10_keccak256_blocks(
-        blocks.data_ptr(), active.data_ptr(), digest.data_ptr(),
-        blocks.shape[0], blocks.shape[1],
-        torch.cuda.current_stream(blocks.device).cuda_stream,
-    )
+    with torch.cuda.device(blocks.device):
+        code = _build.lib("keccak").k10_keccak256_blocks(
+            blocks.data_ptr(), active.data_ptr(), digest.data_ptr(),
+            blocks.shape[0], blocks.shape[1],
+            torch.cuda.current_stream(blocks.device).cuda_stream,
+        )
     _build.check(code, "k10_keccak256_blocks")
     LAUNCHES["keccak256_blocks"] += 1
 

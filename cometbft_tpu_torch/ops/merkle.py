@@ -1,20 +1,20 @@
 """RFC-6962 Merkle trees on the card: leaf hashing (K7), one launch of K8
-per tree level, and node gathers (K9) for inclusion proofs and
-multiproofs — the port of cometbft_tpu/ops/merkle.py.
+per tree for every level above the leaves, and node gathers (K9) for
+inclusion proofs and multiproofs — the port of cometbft_tpu/ops/merkle.py.
 
-Kernels (CUDA C++ in csrc/merkle.cu):
+Kernels (CUDA C++ in csrc/merkle.cu, K8's algorithm in merkle_tree.cuh):
 
   K7 ``sha256_blocks`` (ops/sha2.py)  replaces cometbft_tpu/ops/sha2.py:81
-  K8 ``merkle_level``                 replaces cometbft_tpu/ops/merkle.py:47
-     (with _inner_blocks, :38)
+  K8 ``merkle_tree``                  replaces cometbft_tpu/ops/merkle.py:47
+     hash_level (with _inner_blocks, :38) over every level of a tree
   K9 ``merkle_gather``                replaces cometbft_tpu/ops/merkle.py:117
 
 The reference's split at the largest power of two below n
 (crypto/merkle/tree.go:101) is a level-by-level reduction in which an odd
 trailing node is promoted unchanged.  Every level lives in ONE flat
 (nodes, 32) uint8 tensor, level 0 (the leaf hashes) first, at the
-offsets of crypto/merkle.multiproof_plan: K7 writes level 0, K8 level
-l + 1 from level l in place, and the root is the last row.  Proofs and
+offsets of crypto/merkle.multiproof_plan: K7 writes level 0, K8 every
+level above it in place, and the root is the last row.  Proofs and
 multiproofs gather from that tensor by flat coordinate (-1 where a level
 gives no aunt), so they need no separate level storage; the JAX package
 gathered level by level with an f32 one-hot MXU matmul, a TPU workaround.
@@ -31,7 +31,8 @@ import torch
 from .. import _build
 from . import sha2
 
-LAUNCHES = {"merkle_level": 0, "merkle_gather": 0}
+LAUNCHES = {"merkle_tree": 0, "merkle_gather": 0}
+TREE_THREADS = 256  # threads of a K8 block, which owns 2 x 256 leaves (csrc/merkle_tree.cuh)
 
 LEAF_PREFIX = b"\x00"
 
@@ -95,19 +96,20 @@ def stage_leaves(leaves: list[bytes], device: torch.device, extra: np.ndarray | 
 # ------------------------------------------------------------------ K8
 
 
-def _check_level(flat: torch.Tensor, in_off: int, n: int, out_off: int) -> None:
+def _check_tree(flat: torch.Tensor, n: int) -> None:
     if flat.dtype != torch.uint8 or flat.dim() != 2 or flat.shape[1] != 32:
         raise ValueError("flat must be (nodes, 32) uint8")
-    m = (n + 1) // 2
-    if n < 1 or in_off < 0 or out_off < 0 or in_off + n > flat.shape[0] or out_off + m > flat.shape[0]:
-        raise ValueError(f"level ({in_off}, {n}) -> {out_off} outside {flat.shape[0]} nodes")
-    if out_off < in_off + n and in_off < out_off + m:
-        raise ValueError("a level's output overlaps its input")
+    if n < 1:
+        raise ValueError("a tree needs at least one leaf")
+    if level_offsets(n)[-1] + 1 > flat.shape[0]:
+        raise ValueError(f"a tree of {n} leaves needs {level_offsets(n)[-1] + 1} rows: its levels fall outside "
+                         f"{flat.shape[0]} nodes")
 
 
 def merkle_level_plain(flat: torch.Tensor, in_off: int, n: int, out_off: int) -> None:
-    """Plain version of K8, in place: level of n nodes at in_off -> its
-    parent level at out_off (the odd trailing node promoted)."""
+    """One level of the plain version of K8, in place: the level of n
+    nodes at in_off -> its parent level at out_off (the odd trailing node
+    promoted)."""
     pairs = n // 2
     if pairs:
         left = flat[in_off : in_off + 2 * pairs : 2]
@@ -121,38 +123,61 @@ def merkle_level_plain(flat: torch.Tensor, in_off: int, n: int, out_off: int) ->
         flat[out_off + pairs] = flat[in_off + n - 1]
 
 
-def merkle_level(flat: torch.Tensor, in_off: int, n: int, out_off: int) -> None:
-    """Hash one tree level in place in the flat node tensor: K8 on a CUDA
-    tensor, the plain version on a CPU tensor."""
-    _check_level(flat, in_off, n, out_off)
+def merkle_tree_plain(flat: torch.Tensor, n: int) -> None:
+    """Plain version of K8, in place: every level above the n nodes of
+    level 0, level by level."""
+    offsets = level_offsets(n)
+    for lvl, sz in enumerate(level_sizes(n)):
+        merkle_level_plain(flat, offsets[lvl], sz, offsets[lvl + 1])
+
+
+# one ticket counter (int32, 0 between launches) a (device, stream): K8's
+# last block resets it, so trees on one stream reuse it in turn
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _counter(dev: torch.device, stream: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return _COUNTERS[key]
+
+
+def merkle_tree(flat: torch.Tensor, n: int) -> None:
+    """Hash every level of an n-leaf tree above level 0 (rows [0, n) of
+    ``flat``, filled) in place into the rows of level_offsets(n): ONE K8
+    launch on a CUDA tensor (none for one leaf, which has no level to
+    hash), the plain version on a CPU tensor."""
+    _check_tree(flat, n)
     if flat.device.type == "cpu":
-        return merkle_level_plain(flat, in_off, n, out_off)
+        return merkle_tree_plain(flat, n)
     if flat.device.type != "cuda":
         raise ValueError(f"unsupported device {flat.device}")
     if not flat.is_contiguous() or flat.data_ptr() % 4:
         raise ValueError("flat must be contiguous and 4-byte aligned: K8 writes it in place")
-    code = _build.lib("merkle").k8_merkle_level(
-        flat.data_ptr(), in_off, n, out_off, torch.cuda.current_stream(flat.device).cuda_stream
-    )
-    _build.check(code, "k8_merkle_level")
-    LAUNCHES["merkle_level"] += 1
+    if n == 1:
+        return
+    with torch.cuda.device(flat.device):
+        stream = torch.cuda.current_stream(flat.device).cuda_stream
+        code = _build.lib("merkle").k8_merkle_tree(flat.data_ptr(), n, _counter(flat.device, stream).data_ptr(),
+                                                   stream)
+    _build.check(code, "k8_merkle_tree")
+    LAUNCHES["merkle_tree"] += 1
 
 
 def all_levels(blocks: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     """Host-padded leaves -> the flat (nodes, 32) tensor of every level:
-    K7 writes the leaf hashes into level 0, then one K8 per level."""
+    K7 writes the leaf hashes into level 0, then one K8 the rest."""
     sha2._check_sha256_args(blocks, active)
     n = blocks.shape[0]
     if n < 1:
         raise ValueError("a tree needs at least one leaf")
-    offsets = level_offsets(n)
-    flat = torch.empty((offsets[-1] + 1, 32), dtype=torch.uint8, device=blocks.device)
+    flat = torch.empty((level_offsets(n)[-1] + 1, 32), dtype=torch.uint8, device=blocks.device)
     if blocks.device.type == "cuda":
         sha2.launch_k7(blocks.contiguous(), active.to(torch.int32).contiguous(), flat)
     else:
         flat[:n] = sha2.sha256_blocks(blocks, active)
-    for lvl, sz in enumerate(level_sizes(n)):
-        merkle_level(flat, offsets[lvl], sz, offsets[lvl + 1])
+    merkle_tree(flat, n)
     return flat
 
 
@@ -165,17 +190,15 @@ def root_from_leaves(blocks: torch.Tensor, active: torch.Tensor) -> torch.Tensor
 def root_from_leaf_hashes(hashes: torch.Tensor) -> torch.Tensor:
     """(n, 32) uint8 node hashes -> (32,) root of the tree above them
     (cometbft_tpu/ops/merkle.py:67): the nodes go into level 0 of a flat
-    node tensor, then one K8 per level (its plain version for a CPU
-    tensor).  One node is its own root, with no level to hash, as the
-    JAX loop makes no hash_level call for it."""
+    node tensor, then one K8 (its plain version for a CPU tensor).  One
+    node is its own root, with no level to hash, as the JAX loop makes no
+    hash_level call for it."""
     if hashes.dtype != torch.uint8 or hashes.dim() != 2 or hashes.shape[1] != 32 or hashes.shape[0] < 1:
         raise ValueError("hashes must be (n >= 1, 32) uint8")
     n = hashes.shape[0]
-    offsets = level_offsets(n)
-    flat = torch.empty((offsets[-1] + 1, 32), dtype=torch.uint8, device=hashes.device)
+    flat = torch.empty((level_offsets(n)[-1] + 1, 32), dtype=torch.uint8, device=hashes.device)
     flat[:n] = hashes
-    for lvl, sz in enumerate(level_sizes(n)):
-        merkle_level(flat, offsets[lvl], sz, offsets[lvl + 1])
+    merkle_tree(flat, n)
     return flat[-1]
 
 
@@ -216,10 +239,11 @@ def launch_k9(flat, coord, out) -> None:
     """K9 into a preallocated (K, 32) output on the current stream."""
     if flat.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError("K9 moves 16-byte vectors: flat and out must be 16-byte aligned")
-    code = _build.lib("merkle").k9_merkle_gather(
-        flat.data_ptr(), coord.data_ptr(), out.data_ptr(), coord.shape[0], flat.shape[0],
-        torch.cuda.current_stream(flat.device).cuda_stream,
-    )
+    with torch.cuda.device(flat.device):
+        code = _build.lib("merkle").k9_merkle_gather(
+            flat.data_ptr(), coord.data_ptr(), out.data_ptr(), coord.shape[0], flat.shape[0],
+            torch.cuda.current_stream(flat.device).cuda_stream,
+        )
     _build.check(code, "k9_merkle_gather")
     LAUNCHES["merkle_gather"] += 1
 

@@ -752,10 +752,11 @@ def verify_batch(qx, qy, q_valid, e, r, s, is_eth, v, is_rec, addr, gtab, *,
     out = torch.empty((qx.shape[0],), dtype=torch.uint8, device=dev)
     args = [_c(qx), _c(qy), _c(q_valid, torch.uint8), _c(e), _c(r), _c(s), _c(is_eth, torch.uint8),
             _c(v), _c(is_rec, torch.uint8), _c(addr), _c(gtab), out]
-    code = _build.lib("secp").k11_secp_verify(
-        *[a.data_ptr() for a in args], qx.shape[0], int(bool(glv)), int(bool(recover)),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        code = _build.lib("secp").k11_secp_verify(
+            *[a.data_ptr() for a in args], qx.shape[0], int(bool(glv)), int(bool(recover)),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(code, "k11_secp_verify")
     LAUNCHES[variant("secp_verify_batch", glv, recover)] += 1
     return out.bool()
@@ -788,10 +789,11 @@ def hash_verify_batch(sha_blocks, sha_active, kec_blocks, kec_active, qx, qy, q_
             _c(qx), _c(qy), _c(q_valid, torch.uint8), _c(r), _c(s), _c(is_eth, torch.uint8),
             _c(v), _c(is_rec, torch.uint8), _c(addr), _c(gtab), out]
     p = [a.data_ptr() for a in args]
-    code = _build.lib("secp").k12_secp_hash_verify(
-        p[0], p[1], sha_blocks.shape[1], p[2], p[3], kec_blocks.shape[1], *p[4:],
-        n, int(bool(glv)), int(bool(recover)), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        code = _build.lib("secp").k12_secp_hash_verify(
+            p[0], p[1], sha_blocks.shape[1], p[2], p[3], kec_blocks.shape[1], *p[4:],
+            n, int(bool(glv)), int(bool(recover)), torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(code, "k12_secp_hash_verify")
     LAUNCHES[variant("secp_hash_verify", glv, recover)] += 1
     return out.bool()

@@ -160,10 +160,11 @@ def parse_verify_payload(payload: torch.Tensor, pubs: torch.Tensor):
 def launch_k1(payload, pubs, blocks, active) -> None:
     """K1 into preallocated outputs on the current stream."""
     V, width = payload.shape
-    code = _build.lib("sha2").k1_parse_verify_payload(
-        payload.data_ptr(), pubs.data_ptr(), blocks.data_ptr(), active.data_ptr(),
-        V, width, blocks.shape[1], torch.cuda.current_stream(payload.device).cuda_stream,
-    )
+    with torch.cuda.device(payload.device):
+        code = _build.lib("sha2").k1_parse_verify_payload(
+            payload.data_ptr(), pubs.data_ptr(), blocks.data_ptr(), active.data_ptr(),
+            V, width, blocks.shape[1], torch.cuda.current_stream(payload.device).cuda_stream,
+        )
     _build.check(code, "k1_parse_verify_payload")
     LAUNCHES["parse_verify_payload"] += 1
 
@@ -234,11 +235,12 @@ def sha512_blocks(blocks: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
 
 def launch_k2(blocks, active, digest) -> None:
     """K2 into a preallocated digest on the current stream."""
-    code = _build.lib("sha2").k2_sha512_blocks(
-        blocks.data_ptr(), active.data_ptr(), digest.data_ptr(),
-        blocks.shape[0], blocks.shape[1],
-        torch.cuda.current_stream(blocks.device).cuda_stream,
-    )
+    with torch.cuda.device(blocks.device):
+        code = _build.lib("sha2").k2_sha512_blocks(
+            blocks.data_ptr(), active.data_ptr(), digest.data_ptr(),
+            blocks.shape[0], blocks.shape[1],
+            torch.cuda.current_stream(blocks.device).cuda_stream,
+        )
     _build.check(code, "k2_sha512_blocks")
     LAUNCHES["sha512_blocks"] += 1
 
@@ -348,10 +350,11 @@ def launch_k7(blocks, active, digest) -> None:
     a larger contiguous tensor) on the current stream."""
     if blocks.data_ptr() % 4 or digest.data_ptr() % 4:
         raise ValueError("K7 loads and stores 4-byte words: blocks and digest must be 4-byte aligned")
-    code = _build.lib("merkle").k7_sha256_blocks(
-        blocks.data_ptr(), active.data_ptr(), digest.data_ptr(),
-        blocks.shape[0], blocks.shape[1],
-        torch.cuda.current_stream(blocks.device).cuda_stream,
-    )
+    with torch.cuda.device(blocks.device):
+        code = _build.lib("merkle").k7_sha256_blocks(
+            blocks.data_ptr(), active.data_ptr(), digest.data_ptr(),
+            blocks.shape[0], blocks.shape[1],
+            torch.cuda.current_stream(blocks.device).cuda_stream,
+        )
     _build.check(code, "k7_sha256_blocks")
     LAUNCHES["sha256_blocks"] += 1

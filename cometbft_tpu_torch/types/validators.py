@@ -190,7 +190,7 @@ class ValidatorSet:
         """RFC-6962 root over the SimpleValidator encodings
         (validator_set.go:386), memoised.  Sets of at least
         crypto/merkle.DEVICE_THRESHOLD validators take the kernel route
-        on ``device`` (K7, then one K8 per level), smaller sets hashlib,
+        on ``device`` (K7, then one K8 for the tree), smaller sets hashlib,
         as the JAX package routes them."""
         if self._hash is None:
             items = [v.bytes() for v in self.validators]

@@ -1,5 +1,6 @@
-"""The CUDA kernels K1-K15 against their plain versions on the card, and
-the sharded entries (rows 23-26) on a one-rank NCCL group
+"""The CUDA kernels K1-K15 against their plain versions on the card, the
+launches on a second card (two cards; skips on one), and the sharded
+entries (rows 23-26) on a one-rank NCCL group
 (marker ``cuda``: these skip where no CUDA device is present; run them
 on the card with ``python -m pytest tests/test_torch_cuda.py -m cuda``).
 Small shapes; chip_smoke.py holds the kernels at the main path's."""
@@ -341,41 +342,58 @@ def test_k7_matches_plain_and_hashlib(dev):
     assert [bytes(r) for r in got.cpu().numpy()] == [hashlib.sha256(m).digest() for m in msgs]
 
 
-@pytest.mark.parametrize("n", [1, 2, 3, 5, 9, 130, 1000])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 9, 130, 511, 512, 513, 1000])
 def test_k8_levels_match_plain_and_host(dev, n):
-    """Every level from K8 equals the plain level computed from the same
-    input level; the root equals the host route's."""
+    """One K8 launch a tree (none for one leaf, which has no level): every
+    level equal to the plain version's from the same level 0, over rows
+    poisoned first, at sizes of one block (up to 2T = 512 leaves) and of
+    several; the root equals the host route's."""
     from cometbft_tpu_torch.crypto import merkle as cm
     from cometbft_tpu_torch.ops import merkle as M
 
     rng = np.random.default_rng(11 + n)
     leaves = [rng.bytes(int(rng.integers(0, 100))) for _ in range(n)]
     blocks, active, _ = M.stage_leaves(leaves, dev)
+    before = M.LAUNCHES["merkle_tree"]
     flat = M.all_levels(blocks, active)
-    offs = M.level_offsets(n)
-    for lvl, sz in enumerate(M.level_sizes(n)):
-        want = flat.clone()
-        want[offs[lvl + 1] : offs[lvl + 1] + (sz + 1) // 2] = 0
-        M.merkle_level_plain(want, offs[lvl], sz, offs[lvl + 1])
-        assert torch.equal(flat, want), f"level {lvl} of {n} leaves"
+    assert M.LAUNCHES["merkle_tree"] == before + (n > 1)
+    want = flat.clone()
+    want[n:] = 0
+    M.merkle_tree_plain(want, n)
+    assert torch.equal(flat, want)
+    poisoned = torch.full_like(flat, 0xAA)
+    poisoned[:n] = flat[:n]
+    M.merkle_tree(poisoned, n)
+    assert torch.equal(poisoned, want)
     assert bytes(flat[-1].cpu().numpy()) == cm.hash_from_byte_slices(leaves, device=False)
 
 
 def test_k8_writes_a_one_node_level(dev):
-    """K8 on a level of one node copies it into the parent level (the JAX
-    hash_level returns a one-node level unchanged); the output row is
-    poisoned first, so a launch that writes nothing fails."""
+    """Every tree's top level is one node: K8 writes it over a poisoned
+    row, the trailing node promoted at the top (3 leaves) and the last
+    block's subtree root folded in (1,025 leaves: three blocks); a second
+    launch on the same stream at once (the ticket counter reset by the
+    first) gives the same tree.  One leaf launches nothing."""
     from cometbft_tpu_torch.ops import merkle as M
 
     rng = np.random.default_rng(14)
-    flat = torch.from_numpy(rng.integers(0, 256, size=(5, 32), dtype=np.uint8)).to(dev)
-    flat[4] = 0xAA
-    want = flat.clone()
-    M.merkle_level_plain(want, 2, 1, 4)
-    launches = M.LAUNCHES["merkle_level"]
-    M.merkle_level(flat, 2, 1, 4)
-    assert M.LAUNCHES["merkle_level"] == launches + 1
-    assert torch.equal(flat, want) and torch.equal(flat[4], flat[2])
+    for n in (2, 3, 1025):
+        rows = M.level_offsets(n)[-1] + 1
+        flat = torch.full((rows, 32), 0xAA, dtype=torch.uint8, device=dev)
+        flat[:n] = torch.from_numpy(rng.integers(0, 256, size=(n, 32), dtype=np.uint8)).to(dev)
+        want = flat.clone()
+        M.merkle_tree_plain(want, n)
+        launches = M.LAUNCHES["merkle_tree"]
+        M.merkle_tree(flat, n)
+        first = flat.clone()
+        flat[n:] = 0xAA
+        M.merkle_tree(flat, n)
+        assert M.LAUNCHES["merkle_tree"] == launches + 2
+        assert torch.equal(first, want) and torch.equal(flat, want), n
+    one = torch.from_numpy(rng.integers(0, 256, size=(1, 32), dtype=np.uint8)).to(dev)
+    keep, launches = one.clone(), M.LAUNCHES["merkle_tree"]
+    M.merkle_tree(one, 1)
+    assert M.LAUNCHES["merkle_tree"] == launches and torch.equal(one, keep)
 
 
 def test_k9_matches_plain_with_missing_rows(dev):
@@ -403,6 +421,39 @@ def test_device_proof_routes_match_host(dev):
     r2, p2, dedup = cm.device_multiproof(leaves, idx, device=dev)
     assert r1 == r2 == root == cm.hash_from_byte_slices(leaves, device=dev)
     assert p1 == p2 == [proofs[i] for i in idx] and dedup > 1
+
+
+def test_second_card_launches_off_the_current_device(dev, monkeypatch):
+    """Every launch and completion event on its tensors' card: a comb
+    verify (K1 -> K2 -> K4, the tables by K3) and a Merkle tree (K7, K8)
+    on cuda:1 while the thread's current device is cuda:0, verdicts and
+    root equal to the host's.  Needs two cards; skips on one."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the launches go to cuda:1 while cuda:0 is current")
+    from cometbft_tpu_torch.crypto import batch
+    from cometbft_tpu_torch.crypto import ed25519 as host
+    from cometbft_tpu_torch.crypto import merkle as cm
+    from cometbft_tpu_torch.models import comb_verifier as cv
+
+    monkeypatch.setenv("COMETBFT_TPU_COMB_MIN", "2")
+    monkeypatch.setenv("COMETBFT_TPU_COMB_ASYNC_MIN", "100000")
+    d1 = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(21)
+    keys = [host.PrivKey.from_seed(rng.bytes(32)) for _ in range(40)]
+    msgs = [rng.bytes(int(rng.integers(0, 120))) for _ in keys]
+    sigs = [k.sign(m) for k, m in zip(keys, msgs)]
+    sigs[5] = sigs[6]
+    bv = batch.create_batch_verifier("ed25519", [k.pub_key().data for k in keys], device=d1,
+                                     comb_cache=cv.ValsetCombCache())
+    assert isinstance(bv, cv.CombBatchVerifier)
+    for k, m, s in zip(keys, msgs, sigs):
+        bv.add(k.pub_key().data, m, s)
+    ok, res = bv.verify()
+    assert not ok and res == [i != 5 for i in range(40)]
+    leaves = [rng.bytes(64) for _ in range(1001)]
+    assert cm.hash_from_byte_slices(leaves, device=d1) == cm.hash_from_byte_slices(leaves, device=False)
+    assert torch.cuda.current_device() == 0
 
 
 def test_k10_matches_plain_and_host(dev):
@@ -638,6 +689,43 @@ def test_k13_k15_match_plain_and_host(dev, bls_case):
         if o:
             acc = H._jac_add(H._FP, acc, H._from_affine(H._FP, r))
     assert B.jac_to_affine_host(*(t.cpu() for t in got[1:])) == H._to_affine(H._FP, acc)
+
+
+def _k15_cases():
+    import torch_bls_corpus as C
+
+    return ([("mixed", n) for n in C.EDGE_SIZES] + [("small", 12), ("small", 33), ("prefail", 9),
+                                                      ("valid", 40)])
+
+
+@pytest.mark.parametrize("mode,n", _k15_cases())
+def test_k15_block_edges_and_small_order_match_plain_and_k13(dev, mode, n):
+    """K15 on block-edge batches of 1-33 rows with every failing class at
+    the first and last row of each group of 8 and each tile's last, on
+    rows of order 3 and 11 (equal, opposite and infinite operands
+    mid-ladder), on batches that all fail before the ladder, and on valid
+    rows: ok bytes over a poisoned buffer equal the corpus's, K13's and
+    the plain version's, the all-ok byte and the triple the plain
+    version's word for word."""
+    import torch_bls_corpus as C
+
+    from cometbft_tpu_torch.ops import bls381 as B
+
+    b = C.batch(n, 11 + n, mode)
+    Xd, Yd, vd = (torch.from_numpy(a).to(dev) for a in C.pack(b))
+    ok = torch.full((n,), 0xAA, dtype=torch.uint8, device=dev)
+    all_ok = torch.ones((1,), dtype=torch.uint8, device=dev)
+    triple = torch.empty((B.PT_WORDS,), dtype=torch.int32, device=dev)
+    before = B.LAUNCHES["validate_aggregate_g1"]
+    B.launch_k15(Xd, Yd, vd.to(torch.uint8), ok, all_ok, B._scratch(n, dev), triple)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES["validate_aggregate_g1"] == before + 1
+    assert ok.tolist() == [int(e) for e in b["expect"]]
+    assert torch.equal(ok.bool(), B.validate_g1(Xd, Yd, vd))
+    plain = B.validate_aggregate_g1_plain(Xd, Yd, vd)
+    assert torch.equal(ok.bool(), plain[0]) and int(all_ok) == int(all(b["expect"]))
+    got = (triple[:B.NWORDS], triple[B.NWORDS : 2 * B.NWORDS], triple[2 * B.NWORDS :])
+    assert all(torch.equal(g, p) for g, p in zip(got, plain[1:]))
 
 
 @pytest.mark.parametrize("n", [1, 33, 8200])

@@ -1,5 +1,6 @@
 """Parity of the port's Merkle trees (cometbft_tpu_torch/ops/merkle.py:
-merkle_level_plain — the plain version of K8 —, merkle_gather_plain — of
+merkle_tree_plain — the plain version of K8, merkle_level_plain over the
+levels —, merkle_gather_plain — of
 K9 —, root_from_leaves and nodes_from_leaves with the coordinates of a
 proof plan and of a multiproof plan; and
 cometbft_tpu_torch/crypto/merkle.py's routes with device="cpu") against
@@ -178,8 +179,27 @@ def test_gather_plain_zero_rows():
 
 
 def test_level_wrapper_refuses_overlap_and_bad_offsets():
-    flat = torch.zeros((10, 32), dtype=torch.uint8)
-    with pytest.raises(ValueError, match="overlaps"):
-        M.merkle_level(flat, 0, 6, 4)
+    """K8's wrapper takes a whole tree (merkle_tree(flat, n)) and computes
+    every level's offset itself, so no level can overlap another; what it
+    refuses is a tensor too small for the tree's levels, no leaf, and
+    anything but (nodes, 32) uint8 — before any launch, on any device."""
+    assert M.level_offsets(6) == [0, 6, 9, 11] and M.level_sizes(6) == [6, 3, 2]
     with pytest.raises(ValueError, match="outside"):
-        M.merkle_level(flat, 5, 6, 0)
+        M.merkle_tree(torch.zeros((11, 32), dtype=torch.uint8), 6)  # one row short of the root
+    with pytest.raises(ValueError, match="outside"):
+        M.merkle_tree(torch.zeros((2, 32), dtype=torch.uint8), 3)
+    with pytest.raises(ValueError, match="at least one leaf"):
+        M.merkle_tree(torch.zeros((4, 32), dtype=torch.uint8), 0)
+    for bad in (torch.zeros((12, 32), dtype=torch.int32), torch.zeros((12, 16), dtype=torch.uint8),
+                torch.zeros((12 * 32,), dtype=torch.uint8)):
+        with pytest.raises(ValueError, match=r"\(nodes, 32\) uint8"):
+            M.merkle_tree(bad, 6)
+    with pytest.raises(ValueError, match="unsupported device"):
+        M.merkle_tree(torch.zeros((12, 32), dtype=torch.uint8, device="meta"), 6)
+    flat = torch.zeros((12, 32), dtype=torch.uint8)
+    flat[:6] = torch.arange(6 * 32).remainder(251).to(torch.uint8).reshape(6, 32)
+    want = flat.clone()
+    for lvl, sz in enumerate(M.level_sizes(6)):
+        M.merkle_level_plain(want, M.level_offsets(6)[lvl], sz, M.level_offsets(6)[lvl + 1])
+    M.merkle_tree(flat, 6)  # a CPU tensor: the plain version, level by level
+    assert torch.equal(flat, want)
