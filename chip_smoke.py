@@ -804,9 +804,14 @@ BLS_WARM_CALLS = 7  # p50 over the last 5
 BLS_PLANTED = {17: "wrong subgroup", 4_242: "x >= p", 7_777: "infinity", 9_998: "off-curve x"}
 BLS_TIMING = {"validate_g1": (5, 1), "validate_aggregate_g1": (5, 1), "aggregate_g1": (20, 2)}
 # field multiplies (csrc/bls381.cuh): doubling 7, mixed add 11, general add
-# 16, the on-curve check 3; a CIOS multiply is 288 32x32->64 multiply-adds
+# 16, the on-curve check 3; of them squares 5, 3, 4 and 2.  A multiply is
+# 288 32x32->64 multiply-adds, a square 222 (its 66 cross terms once): the
+# bound's unit, the function's work.  Every multiply at 288, squares
+# included, is printed beside it.
 FM_BLS_DBL, FM_BLS_MADD, FM_BLS_ADD, FM_BLS_CURVE = 7, 11, 16, 3
-OPS_PER_BLS_MUL = 288 * 4
+SQ_BLS_DBL, SQ_BLS_MADD, SQ_BLS_ADD, SQ_BLS_CURVE = 5, 3, 4, 2
+MULADDS_BLS_MUL, MULADDS_BLS_SQ = 288, 222
+OPS_PER_MULADD = 4
 
 
 def bls_keys(H, a: int, b: int, n: int):
@@ -1151,35 +1156,49 @@ def bls_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_ab
     times["aggregate_g1"] = (cuda_ms(lambda: B.launch_k14(Xk, Yk, Zd, part, tri), it, wu), plain14)
     g = -(-N_BLS // B.TILE)
     finish_ms = cuda_ms(lambda: B._launch_finish(part, g, tri), it, wu)
-    # the work of this run's data (bls381.cuh's branches)
+    # the work of this run's data (bls381.cuh's branches), as (field
+    # multiplies, of them squares)
     on_curve_rows = sum(1 for d in decoded if d is not None)  # the decoded rows reach the on-curve check
-    ladder_muls = (R.bit_length() - 1) * FM_BLS_DBL + (bin(R).count("1") - 1) * FM_BLS_MADD
+    n_dbl, n_madd = R.bit_length() - 1, bin(R).count("1") - 1
+    ladder_muls = n_dbl * FM_BLS_DBL + n_madd * FM_BLS_MADD
+    ladder_sqs = n_dbl * SQ_BLS_DBL + n_madd * SQ_BLS_MADD
     rows_ladder = sum(1 for d in decoded if d is not None and H._on_curve(H._FP, d))
-    fm13 = on_curve_rows * FM_BLS_CURVE + rows_ladder * ladder_muls
-    fm15 = fm13 + bls_tree_work(live, B.TILE, B.FINISH) * FM_BLS_ADD
-    fm14 = bls_tree_work([True] * N_BLS, B.TILE, B.FINISH) * FM_BLS_ADD
+    w13 = (on_curve_rows * FM_BLS_CURVE + rows_ladder * ladder_muls,
+           on_curve_rows * SQ_BLS_CURVE + rows_ladder * ladder_sqs)
+    adds15 = bls_tree_work(live, B.TILE, B.FINISH)
+    w15 = (w13[0] + adds15 * FM_BLS_ADD, w13[1] + adds15 * SQ_BLS_ADD)
+    adds14 = bls_tree_work([True] * N_BLS, B.TILE, B.FINISH)
+    w14 = (adds14 * FM_BLS_ADD, adds14 * SQ_BLS_ADD)
     in13 = N_BLS * (2 * 48 + 1)
-    for name, fm, nbytes in (("validate_g1", fm13, in13 + N_BLS + 1),
-                             ("validate_aggregate_g1", fm15, in13 + N_BLS + 1 + 144),
-                             ("aggregate_g1", fm14, N_BLS * 144 + 144)):
-        bounds[name] = ("operations", fm * OPS_PER_BLS_MUL / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S)
+    bls_work = {}
+    for name, (fm, sq), nbytes in (("validate_g1", w13, in13 + N_BLS + 1),
+                                   ("validate_aggregate_g1", w15, in13 + N_BLS + 1 + 144),
+                                   ("aggregate_g1", w14, N_BLS * 144 + 144)):
+        mul_adds = (fm - sq) * MULADDS_BLS_MUL + sq * MULADDS_BLS_SQ
+        bounds[name] = ("operations", mul_adds * OPS_PER_MULADD / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S)
+        bls_work[name] = {"field_muls": fm, "field_squares": sq, "mul_adds": mul_adds,
+                          "mul_adds_all_at_288": fm * MULADDS_BLS_MUL}
         how = (f"both launches, the finishing stage alone {finish_ms:.4f} ms" if name == "aggregate_g1"
                else f"{rows_ladder} rows through the ladder of {ladder_muls} multiplies")
-        log(f"[20] {name}: {times[name][0]:.4f} ms ({how}); work {fm} field multiplies")
+        log(f"[20] {name}: {times[name][0]:.4f} ms ({how}); work {fm} field multiplies, {sq} of them "
+            f"squares: {mul_adds} multiply-adds for the bound (a square at {MULADDS_BLS_SQ}), "
+            f"{fm * MULADDS_BLS_MUL} with every multiply at {MULADDS_BLS_MUL}")
     H._pairings_product_is_one = real_pairing
 
     # launch shapes and ptxas figures (a spill anywhere in bls.cu fails)
     from cometbft_tpu_torch import _build
 
     def bls_entry(line):
-        for key, kern in (("validate_g1", "k13_kernel"), ("aggregate_g1_finish", "k14_finish_kernel"),
-                          ("aggregate_g1", "k14_kernel"), ("validate_aggregate_g1", "k15_kernel")):
+        for key, kern in (("aggregate_g1_finish", "k14_finish_kernel"), ("aggregate_g1", "k14_kernel"),
+                          ("validate_aggregate_g1", "k15_kernel")):
             if kern in line:
                 return key
         return None
 
     rep = ptxas_kernels(_build.BUILD_LOG["bls"]["ptxas"], bls_entry)
     ptx = rep["kernels"]
+    if "validate_aggregate_g1" in ptx:  # K13 launches K15's kernel, which stops before the tile stage
+        ptx["validate_g1"] = dict(ptx["validate_aggregate_g1"])
     require(set(ptx) == set(B.LAUNCHES), f"bls.cu's ptxas report names {sorted(ptx)}")
     for name, f in ptx.items():
         require(f.get("spill_bytes", 1) == 0, f"{name} spills: {f}")
@@ -1190,6 +1209,10 @@ def bls_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_ab
                          "blocks_per_sm": blocks_per_sm(ptx[name]["registers"], ptx[name]["smem_bytes"], tr * rb),
                          **ptx[name]} for name, (tr, rb) in threads.items()}
     log(f"[20] bls.cu ptxas and launch shapes: {json.dumps(bls_shapes)}")
+    k15p = ptx["validate_aggregate_g1"]
+    log(f"[20] K13 and K15 (one kernel, k15_kernel): {k15p['registers']} registers, "
+        f"{k15p.get('stack_bytes', 0)} bytes of stack, {k15p['spill_bytes']} spilled; bls.cu built in "
+        f"{_build.BUILD_LOG['bls']['seconds']:.1f} s")
 
     src = "cometbft_tpu_torch/csrc/bls.cu"
     meta = {
@@ -1197,6 +1220,8 @@ def bls_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_ab
         "aggregate_g1": ("K14", src, "cometbft_tpu/ops/bls381.py:273", ["bls381_aggregate_g1"]),
         "validate_aggregate_g1": ("K15", src, "cometbft_tpu/ops/bls381.py:365", ["bls381_validate_aggregate_g1"]),
     }
+    for name in bls_shapes:
+        bls_shapes[name].update(bls_work.get(name, {}))
     record = {"bls_rows": N_BLS, "bls_commit_ms": walls, "bls_phases_ms": timings, "bls_shapes": bls_shapes,
               "bls_verify_commit_512_ms": vc, "bls_path_launches": path_counts,
               "bls_k14_finish_ms": finish_ms, "bls_lane_s": time.perf_counter() - t_lane}

@@ -4,7 +4,13 @@
 // K13 k13_bls_validate replaces cometbft_tpu/ops/bls381.py:346
 // validate_g1: one thread per row runs bls_validate_row (bls381.cuh) —
 // the host decode's mask, on-curve, [r]P = infinity — and writes one
-// verdict byte; a failing row clears the all-ok byte.
+// verdict byte; a failing row clears the all-ok byte.  It launches K15's
+// kernel with no partials, which stops before the tile stage, so that
+// one compiled copy of the row body serves both: ptxas compiles a copy of
+// each out-of-line routine (fe_mul, fe_sq, g1_double, g1_madd) into every
+// kernel, and the copies need not match (with 64-bit column sums on the
+// card, a kernel of K13's own got an fe_mul of 1,302 SASS instructions
+// against K15's 1,047, and took 5.90 ms against 4.45; PERF.md).
 //
 // K14 k14_bls_aggregate + k14_bls_aggregate_finish replace :273
 // aggregate_g1: the tile stage sums each tile of BLS_TILE rows in a
@@ -28,11 +34,15 @@
 //
 // Bound on this card: operations — about 3,240 field multiplies of 288
 // multiply-adds per valid row in K13 and K15, 16 per add of the tree in
-// K14 (chip_smoke.py counts them from the run's data).  What this first
-// version does about it: one thread per row, field multiplies and point
-// operations not inlined to keep the build quick, the tree's points in
-// shared memory with the coordinate word as the slow index (conflict-free
-// loads), tiles of 32 rows so that 10,000 rows spread over every SM.
+// K14 (chip_smoke.py counts them from the run's data).  What the design
+// does about it: one thread per row, whose time is its chain of field
+// multiplies at ~2.4 warps an SM; the product-scanning fe_mul and the
+// dedicated fe_sq (bls381.cuh) shorten each multiply, and field elements
+// pass to them by value, in registers; field multiplies and point
+// operations stay out of line, so the ladder's code stays small; the
+// tree's points in shared memory with the coordinate word as the slow
+// index (conflict-free loads), tiles of 32 rows so that 10,000 rows
+// spread over every SM.
 //
 // All launch on the caller's stream, allocate nothing, and return
 // cudaGetLastError().
@@ -42,7 +52,6 @@
 
 #define BLS_TILE 32     // rows of one tile-stage block (ops/bls381.py TILE)
 #define BLS_FINISH 256  // threads of the finishing stage (ops/bls381.py FINISH)
-#define BLS_VALIDATE_THREADS 32
 
 __device__ __forceinline__ void sm_store(u32* sm, int stride, int t, const g1p& p) {
   for (int k = 0; k < BLS_W; k++) {
@@ -86,19 +95,6 @@ __device__ __forceinline__ void load_row(u32 w[BLS_W], const u32* src, int i) {
   for (int k = 0; k < BLS_W; k++) w[k] = src[(size_t)i * BLS_W + k];
 }
 
-__global__ void k13_kernel(const u32* __restrict__ X, const u32* __restrict__ Y,
-                           const uint8_t* __restrict__ valid, uint8_t* __restrict__ ok,
-                           uint8_t* __restrict__ all_ok, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  u32 x[BLS_W], y[BLS_W];
-  load_row(x, X, i);
-  load_row(y, Y, i);
-  bool o = bls_validate_row(x, y, valid[i] != 0);
-  ok[i] = o ? 1 : 0;
-  if (!o) *all_ok = 0;  // every writer stores the same byte
-}
-
 __global__ void __launch_bounds__(BLS_TILE)
     k14_kernel(const u32* __restrict__ X, const u32* __restrict__ Y,
                const u32* __restrict__ Z, u32* __restrict__ partials, int n) {
@@ -140,6 +136,7 @@ __global__ void __launch_bounds__(BLS_TILE)
       fe_copy(p.Z, BLS_ONE_M);
     }
   }
+  if (partials == nullptr) return;  // K13: the verdicts only
   sm_store(sm, BLS_TILE, t, p);
   __syncthreads();
   sm_tree(sm, BLS_TILE);
@@ -172,9 +169,9 @@ __global__ void __launch_bounds__(BLS_FINISH)
 extern "C" int k13_bls_validate(const void* X, const void* Y, const void* valid, void* ok,
                                 void* all_ok, int n, void* stream) {
   if (n > 0) {
-    dim3 grid((n + BLS_VALIDATE_THREADS - 1) / BLS_VALIDATE_THREADS), block(BLS_VALIDATE_THREADS);
-    k13_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const u32*)X, (const u32*)Y, (const uint8_t*)valid, (uint8_t*)ok, (uint8_t*)all_ok, n);
+    dim3 grid((n + BLS_TILE - 1) / BLS_TILE), block(BLS_TILE);
+    k15_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const u32*)X, (const u32*)Y, (const uint8_t*)valid, (uint8_t*)ok, (uint8_t*)all_ok, nullptr, n);
   }
   return (int)cudaGetLastError();
 }

@@ -4,17 +4,41 @@
 // Representation: a field element is 12 little-endian 32-bit words (word
 // 0 least significant) of its Montgomery form a R mod p, R = 2^384 — the
 // same R as the JAX package's 32 x 12-bit limbs, so both hold the same
-// number.  Products are 32x32->64 (mul.wide on the card); the TPU version
-// built them from an outer product and an anti-diagonal matmul because
-// the TPU has no 64-bit product.
+// number.  Products are 32x32->64; the TPU version built them from an
+// outer product and an anti-diagonal matmul because the TPU has no 64-bit
+// product.  Inside the group operations a field element is an `fe`, 12
+// words passed and returned by value, so that the compiler keeps it in
+// registers across the out-of-line fe_mul and fe_sq; a point (g1p) keeps
+// its coordinates as word arrays.
 //
 // Field: CANONICAL everywhere — every operation takes and returns values
 // in [0, p), so word equality is value equality and zero is all-zero
-// words.  fe_mul is CIOS Montgomery multiplication: with a, b < p each of
-// its 12 steps keeps t < 2p (t + a b_i + m p < 2p + 2 (2^32 - 1) p, then
-// divided by 2^32), so the result needs one conditional subtraction and t
-// never needs a 14th word.  p < 2^381, so a + b < 2p < 2^382 never
-// carries out of 12 words.
+// words.  p < 2^381, so a + b < 2p < 2^382 never carries out of 12 words.
+//
+// fe_mul and fe_sq are product-scanning Montgomery multiplications with
+// the reduction interleaved column by column.  Column k (k = 0..22) sums
+// its 32x32->64 products: a_i b_j with i + j = k (fe_sq: the cross terms
+// a_i a_j, i < j, doubled, and a_{k/2}^2) and m_j p_{k-j} for the m_j
+// already chosen.  No carry links one column's products to another
+// column's; only the column's total waits for what the column below
+// carries (c) and, for k < 12, m_k = (low word of the total) (-p^-1) mod
+// 2^32 waits for the total.  m_k p_0 turns the low word into 0, so only
+// its high half is added, and the low word carries 1 unless it was 0
+// already.  A column holds at most 12 products of the operands (fe_sq: at
+// most 6 cross terms, doubled, and one square) and at most 12 of m and p,
+// so its sum with c < 2^38 stays below 25 2^64, and the next c, the sum
+// over 2^32 plus 2^32 + 1, below 2^38.  The sum is an fe_col: on the host
+// two 64-bit sums, L of the products' low halves (below 24 2^32 + 2^38 <
+// 2^39) and H of their high halves (below 24 2^32), so that g++
+// desk-checks the arithmetic in portable C++; on the card a 96-bit word
+// triple that each product enters through one mad.lo.cc / madc.hi.cc /
+// addc chain (ptxas fuses the first two into one multiply-add with a
+// 64-bit addend and a carry out).  Columns 12..22 give the result's words
+// 0..10 and the last carry its word 11: the result is (a b + m p) / R <
+// (p^2 + R p) / R < 2p < 2^382 for a, b < p, so it fits 12 words (the last
+// carry < 2^30) and one conditional subtraction of p makes it canonical.
+// The add and subtract chains run through the carry flag on the card
+// (add.cc / addc, sub.cc / subc) and as 64-bit sums on the host.
 //
 // Group: G1 is y^2 = x^3 + 4 (a = 0) over Fp; Jacobian (X, Y, Z),
 // x = X / Z^2, y = Y / Z^3, infinity Z = 0; the identity written here is
@@ -27,7 +51,9 @@
 //
 // Field multiplies per group operation (the unit of the bounds in
 // chip_smoke.py): doubling 7 (2M + 5S), mixed add 11 (8M + 3S), general
-// add 16 (12M + 4S); fe_mul is 288 32x32->64 multiply-adds.
+// add 16 (12M + 4S).  A multiply is 288 32x32->64 multiply-adds (144
+// products and 144 of the reduction, the 12 m_k p_0 for their high
+// halves only), a square 222 (78 products); both add the 12 m_k.
 #pragma once
 
 #include "common.cuh"
@@ -63,11 +89,32 @@ struct g1p {
   u32 X[BLS_W], Y[BLS_W], Z[BLS_W];
 };
 
+struct fe {
+  u32 w[BLS_W];
+};
+
 // ------------------------------------------------------------ field
+
+// word i of p for the add chains, where i is a constant after unrolling:
+// ~p_i and p_i as immediate operands (the same words as BLS_P, which the
+// products read from the constant bank: tests/test_torch_bls_field_host.py).
+// BLS_P[i] in the chains costs each group operation's copy 24-42 more
+// instructions and K13 / K15 ~0.6% (PERF.md).
+DEV u32 bls_p(const int i) {
+  constexpr u32 w[BLS_W] = {0xFFFFAAABu, 0xB9FEFFFFu, 0xB153FFFFu, 0x1EABFFFEu, 0xF6B0F624u, 0x6730D2A0u,
+                            0xF38512BFu, 0x64774B84u, 0x434BACD7u, 0x4B1BA7B6u, 0x397FE69Au, 0x1A0111EAu};
+  return w[i];
+}
 
 DEV void fe_copy(u32 r[BLS_W], const u32 a[BLS_W]) {
   UNROLL
   for (int i = 0; i < BLS_W; i++) r[i] = a[i];
+}
+
+DEV fe fe_ld(const u32 a[BLS_W]) {
+  fe r;
+  fe_copy(r.w, a);
+  return r;
 }
 
 DEV bool fe_is_zero(const u32 a[BLS_W]) {
@@ -77,10 +124,10 @@ DEV bool fe_is_zero(const u32 a[BLS_W]) {
   return o == 0;
 }
 
-DEV bool fe_eq(const u32 a[BLS_W], const u32 b[BLS_W]) {
+DEV bool fe_eq(const fe& a, const fe& b) {
   u32 o = 0;
   UNROLL
-  for (int i = 0; i < BLS_W; i++) o |= a[i] ^ b[i];
+  for (int i = 0; i < BLS_W; i++) o |= a.w[i] ^ b.w[i];
   return o == 0;
 }
 
@@ -95,86 +142,228 @@ DEV bool fe_lt_p(const u32 a[BLS_W]) {
   return borrow != 0;
 }
 
-// r = a + b mod p (canonical inputs; r may alias either)
-DEV void fe_add(u32 r[BLS_W], const u32 a[BLS_W], const u32 b[BLS_W]) {
-  u32 s[BLS_W], d[BLS_W];
+// A word chain's step on the card: add.cc / addc.cc (sub.cc / subc.cc)
+// through the carry flag, one asm statement a word, the statements of a
+// chain in one unbroken sequence.  The compiler does not see the carry
+// flag, and it keeps only volatile asm statements in their order, so
+// every statement that sets or reads the flag (here, col_add, fe_mac) is
+// volatile: none can move into another's chain.
+#ifdef __CUDA_ARCH__
+#define BLS_CC(op, r, x, y) asm volatile(op " %0, %1, %2;" : "=r"(r) : "r"(x), "r"(y))
+#endif
+
+// s - p if s >= p, else s (s < 2^384); on the host the difference is
+// s + ~p + 1, whose last carry is 1 iff s >= p
+DEV fe fe_sub_p_once(const fe& s) {
+  fe d;
+#ifdef __CUDA_ARCH__
+  u32 borrow;
+  BLS_CC("sub.cc.u32", d.w[0], s.w[0], bls_p(0));
+  UNROLL
+  for (int i = 1; i < BLS_W; i++) BLS_CC("subc.cc.u32", d.w[i], s.w[i], bls_p(i));
+  BLS_CC("subc.u32", borrow, 0u, 0u);
+#else
+  u64 acc = 1;
+  UNROLL
+  for (int i = 0; i < BLS_W; i++) {
+    acc += (u64)s.w[i] + (u32)~bls_p(i);
+    d.w[i] = (u32)acc;
+    acc >>= 32;
+  }
+  const u32 borrow = (u32)acc - 1u;
+#endif
+  UNROLL
+  for (int i = 0; i < BLS_W; i++) d.w[i] = borrow ? s.w[i] : d.w[i];
+  return d;
+}
+
+// a + b mod p (canonical inputs)
+DEV fe fe_add(const fe& a, const fe& b) {
+  fe s;
+#ifdef __CUDA_ARCH__
+  BLS_CC("add.cc.u32", s.w[0], a.w[0], b.w[0]);
+  UNROLL
+  for (int i = 1; i < BLS_W; i++) BLS_CC("addc.cc.u32", s.w[i], a.w[i], b.w[i]);
+#else
   u64 acc = 0;
   UNROLL
   for (int i = 0; i < BLS_W; i++) {
-    acc += (u64)a[i] + b[i];
-    s[i] = (u32)acc;
+    acc += (u64)a.w[i] + b.w[i];
+    s.w[i] = (u32)acc;
     acc >>= 32;
   }
-  u32 borrow = 0;
-  UNROLL
-  for (int i = 0; i < BLS_W; i++) {
-    u64 t = (u64)s[i] - BLS_P[i] - borrow;
-    d[i] = (u32)t;
-    borrow = (u32)(t >> 32) & 1u;
-  }
-  UNROLL
-  for (int i = 0; i < BLS_W; i++) r[i] = borrow ? s[i] : d[i];
+#endif
+  return fe_sub_p_once(s);
 }
 
-// r = a - b mod p (canonical inputs; r may alias either)
-DEV void fe_sub(u32 r[BLS_W], const u32 a[BLS_W], const u32 b[BLS_W]) {
-  u32 d[BLS_W];
-  u32 borrow = 0;
+// a - b mod p (canonical inputs)
+DEV fe fe_sub(const fe& a, const fe& b) {
+  fe d;
+#ifdef __CUDA_ARCH__
+  u32 mask;
+  BLS_CC("sub.cc.u32", d.w[0], a.w[0], b.w[0]);
+  UNROLL
+  for (int i = 1; i < BLS_W; i++) BLS_CC("subc.cc.u32", d.w[i], a.w[i], b.w[i]);
+  BLS_CC("subc.u32", mask, 0u, 0u);  // all ones iff a < b: add p back
+  BLS_CC("add.cc.u32", d.w[0], d.w[0], bls_p(0) & mask);
+  UNROLL
+  for (int i = 1; i < BLS_W; i++) BLS_CC("addc.cc.u32", d.w[i], d.w[i], bls_p(i) & mask);
+#else
+  u64 acc = 1;
   UNROLL
   for (int i = 0; i < BLS_W; i++) {
-    u64 t = (u64)a[i] - b[i] - borrow;
-    d[i] = (u32)t;
-    borrow = (u32)(t >> 32) & 1u;
-  }
-  u32 mask = 0u - borrow;
-  u64 acc = 0;
-  UNROLL
-  for (int i = 0; i < BLS_W; i++) {
-    acc += (u64)d[i] + (BLS_P[i] & mask);
-    r[i] = (u32)acc;
+    acc += (u64)a.w[i] + (u32)~b.w[i];
+    d.w[i] = (u32)acc;
     acc >>= 32;
   }
+  const u32 mask = (u32)acc - 1u;  // all ones iff a < b: add p back
+  acc = 0;
+  UNROLL
+  for (int i = 0; i < BLS_W; i++) {
+    acc += (u64)d.w[i] + (bls_p(i) & mask);
+    d.w[i] = (u32)acc;
+    acc >>= 32;
+  }
+#endif
+  return d;
 }
 
-// r = a b R^-1 mod p, CIOS (canonical inputs; r may alias either)
-BLS_NOINL void fe_mul(u32 r[BLS_W], const u32 a[BLS_W], const u32 b[BLS_W]) {
-  u32 t[BLS_W + 1];
+// the high word of x y (mul.hi on the card)
+DEV u32 fe_mulhi(u32 x, u32 y) {
+#ifdef __CUDA_ARCH__
+  return __umulhi(x, y);
+#else
+  return (u32)(((u64)x * y) >> 32);
+#endif
+}
+
+// A column's sum: L + H 2^32 on the host; on the card the word triple
+// s2 s1 s0, each add a carry chain
+struct fe_col {
+#ifdef __CUDA_ARCH__
+  u32 s0, s1, s2;
+#else
+  u64 L, H;
+#endif
+};
+
+DEV fe_col col_zero() {
+  fe_col c;
+#ifdef __CUDA_ARCH__
+  c.s0 = c.s1 = c.s2 = 0;
+#else
+  c.L = c.H = 0;
+#endif
+  return c;
+}
+
+// S += lo + hi 2^32
+DEV void col_add(fe_col& c, u32 lo, u32 hi) {
+#ifdef __CUDA_ARCH__
+  asm volatile("add.cc.u32 %0, %0, %3;\n\taddc.cc.u32 %1, %1, %4;\n\taddc.u32 %2, %2, 0;"
+      : "+r"(c.s0), "+r"(c.s1), "+r"(c.s2)
+      : "r"(lo), "r"(hi));
+#else
+  c.L += lo;
+  c.H += hi;
+#endif
+}
+
+DEV u32 col_low(const fe_col& c) {
+#ifdef __CUDA_ARCH__
+  return c.s0;
+#else
+  return (u32)c.L;
+#endif
+}
+
+// S >> 32
+DEV u64 col_high(const fe_col& c) {
+#ifdef __CUDA_ARCH__
+  return ((u64)c.s2 << 32) | c.s1;
+#else
+  return (c.L >> 32) + c.H;
+#endif
+}
+
+// S = 2 S
+DEV void col_double(fe_col& c) {
+#ifdef __CUDA_ARCH__
+  c.s2 = (c.s2 << 1) | (c.s1 >> 31);
+  c.s1 = (c.s1 << 1) | (c.s0 >> 31);
+  c.s0 <<= 1;
+#else
+  c.L <<= 1;
+  c.H <<= 1;
+#endif
+}
+
+// S += x y
+DEV void fe_mac(fe_col& c, u32 x, u32 y) {
+#ifdef __CUDA_ARCH__
+  asm volatile("mad.lo.cc.u32 %0, %3, %4, %0;\n\tmadc.hi.cc.u32 %1, %3, %4, %1;\n\taddc.u32 %2, %2, 0;"
+      : "+r"(c.s0), "+r"(c.s1), "+r"(c.s2)
+      : "r"(x), "r"(y));
+#else
+  const u64 t = (u64)x * y;
+  c.L += (u32)t;
+  c.H += t >> 32;
+#endif
+}
+
+// The reduction's share of column k, after the column's products are in
+// S: the m_j p_{k-j} of the m_j already chosen (the latest last), then c,
+// what the column below carries.  Below column 12 it chooses m_k; from
+// column 12 on it writes word k - 12 of the result.  Returns the carry
+// into column k + 1.
+DEV u64 fe_redc_col(const int k, fe_col S, const u64 c, u32 m[BLS_W], fe& t) {
   UNROLL
-  for (int i = 0; i <= BLS_W; i++) t[i] = 0;
-  UNROLL
-  for (int i = 0; i < BLS_W; i++) {
-    u32 bi = b[i];
-    u64 c = 0;
-    UNROLL
-    for (int j = 0; j < BLS_W; j++) {
-      u64 x = (u64)a[j] * bi + t[j] + c;
-      t[j] = (u32)x;
-      c = x >> 32;
-    }
-    t[BLS_W] = (u32)c;  // t < 2p + (2^32 - 1) p < 2^416: no 14th word
-    u32 m = t[0] * BLS_PINV;
-    u64 x = (u64)m * BLS_P[0] + t[0];
-    c = x >> 32;
-    UNROLL
-    for (int j = 1; j < BLS_W; j++) {
-      x = (u64)m * BLS_P[j] + t[j] + c;
-      t[j - 1] = (u32)x;
-      c = x >> 32;
-    }
-    x = (u64)t[BLS_W] + c;
-    t[BLS_W - 1] = (u32)x;
-    t[BLS_W] = (u32)(x >> 32);  // 0: the step leaves t < 2p < 2^382
+  for (int j = 0; j < BLS_W; j++)
+    if (j < k && k - j < BLS_W) fe_mac(S, m[j], BLS_P[k - j]);
+  col_add(S, (u32)c, (u32)(c >> 32));
+  if (k < BLS_W) {
+    const u32 mk = col_low(S) * BLS_PINV;
+    m[k] = mk;
+    return col_high(S) + (col_low(S) != 0u) + fe_mulhi(mk, BLS_P[0]);
   }
-  u32 d[BLS_W];
-  u32 borrow = 0;
+  t.w[k - BLS_W] = col_low(S);
+  return col_high(S);
+}
+
+// a b R^-1 mod p (canonical inputs), product scanning
+BLS_NOINL fe fe_mul(const fe a, const fe b) {
+  u32 m[BLS_W];
+  fe t;
+  u64 c = 0;
   UNROLL
-  for (int i = 0; i < BLS_W; i++) {
-    u64 s = (u64)t[i] - BLS_P[i] - borrow;
-    d[i] = (u32)s;
-    borrow = (u32)(s >> 32) & 1u;
+  for (int k = 0; k < 2 * BLS_W - 1; k++) {
+    fe_col S = col_zero();
+    UNROLL
+    for (int i = 0; i < BLS_W; i++)
+      if (i <= k && k - i < BLS_W) fe_mac(S, a.w[i], b.w[k - i]);
+    c = fe_redc_col(k, S, c, m, t);
   }
+  t.w[BLS_W - 1] = (u32)c;
+  return fe_sub_p_once(t);
+}
+
+// a^2 R^-1 mod p (canonical input): 66 cross terms, doubled, and 12 squares
+BLS_NOINL fe fe_sq(const fe a) {
+  u32 m[BLS_W];
+  fe t;
+  u64 c = 0;
   UNROLL
-  for (int i = 0; i < BLS_W; i++) r[i] = borrow ? t[i] : d[i];
+  for (int k = 0; k < 2 * BLS_W - 1; k++) {
+    fe_col S = col_zero();
+    UNROLL
+    for (int i = 0; i < BLS_W; i++)
+      if (i < k - i && k - i < BLS_W) fe_mac(S, a.w[i], a.w[k - i]);
+    col_double(S);
+    if ((k & 1) == 0) fe_mac(S, a.w[k >> 1], a.w[k >> 1]);
+    c = fe_redc_col(k, S, c, m, t);
+  }
+  t.w[BLS_W - 1] = (u32)c;
+  return fe_sub_p_once(t);
 }
 
 // ------------------------------------------------------------ group
@@ -192,69 +381,56 @@ DEV void g1_copy(g1p& r, const g1p& p) {
   fe_copy(r.Z, p.Z);
 }
 
+DEV void g1_store(g1p& r, const fe& X3, const fe& Y3, const fe& Z3) {
+  fe_copy(r.X, X3.w);
+  fe_copy(r.Y, Y3.w);
+  fe_copy(r.Z, Z3.w);
+}
+
 // r = 2 p, dbl-2009-l (a = 0); r may alias p
 BLS_NOINL void g1_double(g1p& r, const g1p& p) {
   if (fe_is_zero(p.Z)) {
     g1_set_identity(r);
     return;
   }
-  u32 A[BLS_W], B[BLS_W], C[BLS_W], D[BLS_W], E[BLS_W], t[BLS_W], Z3[BLS_W];
-  fe_mul(A, p.X, p.X);
-  fe_mul(B, p.Y, p.Y);
-  fe_mul(C, B, B);
-  fe_add(t, p.X, B);
-  fe_mul(t, t, t);
-  fe_add(D, A, C);
-  fe_sub(D, t, D);
-  fe_add(D, D, D);  // D = 2 ((X + B)^2 - A - C)
-  fe_add(E, A, A);
-  fe_add(E, E, A);  // E = 3 A
-  fe_add(t, p.Y, p.Y);
-  fe_mul(Z3, t, p.Z);  // Z3 = 2 Y Z, before r overwrites p
-  fe_mul(t, E, E);
-  fe_add(A, D, D);
-  fe_sub(r.X, t, A);  // X3 = E^2 - 2 D
-  fe_add(C, C, C);
-  fe_add(C, C, C);
-  fe_add(C, C, C);  // 8 C
-  fe_sub(t, D, r.X);
-  fe_mul(t, E, t);
-  fe_sub(r.Y, t, C);  // Y3 = E (D - X3) - 8 C
-  fe_copy(r.Z, Z3);
+  const fe X = fe_ld(p.X), Y = fe_ld(p.Y);
+  const fe A = fe_sq(X), B = fe_sq(Y), C = fe_sq(B);
+  fe D = fe_sub(fe_sq(fe_add(X, B)), fe_add(A, C));
+  D = fe_add(D, D);  // D = 2 ((X + B)^2 - A - C)
+  const fe E = fe_add(fe_add(A, A), A);  // E = 3 A
+  const fe Z3 = fe_mul(fe_add(Y, Y), fe_ld(p.Z));  // Z3 = 2 Y Z
+  const fe X3 = fe_sub(fe_sq(E), fe_add(D, D));  // X3 = E^2 - 2 D
+  fe C8 = fe_add(C, C);
+  C8 = fe_add(C8, C8);
+  C8 = fe_add(C8, C8);
+  const fe Y3 = fe_sub(fe_mul(E, fe_sub(D, X3)), C8);  // Y3 = E (D - X3) - 8 C
+  g1_store(r, X3, Y3, Z3);
 }
 
 // The tail shared by the adds, for p non-infinite: H = U2 - U1,
 // R = S2 - S1, Zp = Z1 Z2.  X3 = (2R)^2 - J - 2V, Y3 = 2R (V - X3) -
 // 2 S1 J, Z3 = 2 Zp H with I = (2H)^2, J = H I, V = U1 I.
-DEV void g1_add_tail(g1p& r, const g1p& p, const u32 U1[BLS_W], const u32 S1[BLS_W],
-                     const u32 H[BLS_W], const u32 R[BLS_W], const u32 Zp[BLS_W]) {
-  if (fe_is_zero(H)) {
-    if (fe_is_zero(R)) {
+DEV void g1_add_tail(g1p& r, const g1p& p, const fe& U1, const fe& S1, const fe& H, const fe& R,
+                     const fe& Zp) {
+  if (fe_is_zero(H.w)) {
+    if (fe_is_zero(R.w)) {
       g1_double(r, p);  // equal points
     } else {
       g1_set_identity(r);  // opposite points
     }
     return;
   }
-  u32 I[BLS_W], J[BLS_W], V[BLS_W], r2[BLS_W], t[BLS_W], X3[BLS_W], Z3[BLS_W];
-  fe_add(t, H, H);
-  fe_mul(I, t, t);
-  fe_mul(J, H, I);
-  fe_add(r2, R, R);
-  fe_mul(V, U1, I);
-  fe_mul(X3, r2, r2);
-  fe_add(t, V, V);
-  fe_add(t, J, t);
-  fe_sub(X3, X3, t);
-  fe_mul(Z3, Zp, H);
-  fe_add(Z3, Z3, Z3);
-  fe_mul(t, S1, J);
-  fe_add(J, t, t);  // J = 2 S1 J
-  fe_sub(t, V, X3);
-  fe_mul(t, r2, t);
-  fe_sub(r.Y, t, J);
-  fe_copy(r.X, X3);
-  fe_copy(r.Z, Z3);
+  const fe I = fe_sq(fe_add(H, H));
+  const fe J = fe_mul(H, I);
+  const fe r2 = fe_add(R, R);
+  const fe V = fe_mul(U1, I);
+  const fe X3 = fe_sub(fe_sq(r2), fe_add(J, fe_add(V, V)));
+  fe Z3 = fe_mul(Zp, H);
+  Z3 = fe_add(Z3, Z3);
+  fe J2 = fe_mul(S1, J);
+  J2 = fe_add(J2, J2);  // 2 S1 J
+  const fe Y3 = fe_sub(fe_mul(r2, fe_sub(V, X3)), J2);
+  g1_store(r, X3, Y3, Z3);
 }
 
 // r = p + q, complete; r may alias p or q
@@ -267,19 +443,13 @@ BLS_NOINL void g1_add(g1p& r, const g1p& p, const g1p& q) {
     g1_copy(r, p);
     return;
   }
-  u32 z1z[BLS_W], z2z[BLS_W], U1[BLS_W], U2[BLS_W], S1[BLS_W], S2[BLS_W], Zp[BLS_W];
-  fe_mul(z1z, p.Z, p.Z);
-  fe_mul(z2z, q.Z, q.Z);
-  fe_mul(U1, p.X, z2z);
-  fe_mul(U2, q.X, z1z);
-  fe_mul(S1, p.Y, q.Z);
-  fe_mul(S1, S1, z2z);
-  fe_mul(S2, q.Y, p.Z);
-  fe_mul(S2, S2, z1z);
-  fe_mul(Zp, p.Z, q.Z);
-  fe_sub(U2, U2, U1);  // H
-  fe_sub(S2, S2, S1);  // R
-  g1_add_tail(r, p, U1, S1, U2, S2, Zp);
+  const fe Z1 = fe_ld(p.Z), Z2 = fe_ld(q.Z);
+  const fe z1z = fe_sq(Z1), z2z = fe_sq(Z2);
+  const fe U1 = fe_mul(fe_ld(p.X), z2z), U2 = fe_mul(fe_ld(q.X), z1z);
+  const fe S1 = fe_mul(fe_mul(fe_ld(p.Y), Z2), z2z);
+  const fe S2 = fe_mul(fe_mul(fe_ld(q.Y), Z1), z1z);
+  const fe Zp = fe_mul(Z1, Z2);
+  g1_add_tail(r, p, U1, S1, fe_sub(U2, U1), fe_sub(S2, S1), Zp);
 }
 
 // r = p + (x2, y2) for an affine (x2, y2) (Z2 = 1), complete; the same
@@ -291,17 +461,11 @@ BLS_NOINL void g1_madd(g1p& r, const g1p& p, const u32 x2[BLS_W], const u32 y2[B
     fe_copy(r.Z, BLS_ONE_M);
     return;
   }
-  u32 z1z[BLS_W], U1[BLS_W], S1[BLS_W], H[BLS_W], R[BLS_W], Zp[BLS_W];
-  fe_mul(z1z, p.Z, p.Z);
-  fe_mul(H, x2, z1z);
-  fe_sub(H, H, p.X);  // H = x2 Z1^2 - X1
-  fe_mul(R, y2, p.Z);
-  fe_mul(R, R, z1z);
-  fe_sub(R, R, p.Y);  // R = y2 Z1^3 - Y1
-  fe_copy(U1, p.X);
-  fe_copy(S1, p.Y);
-  fe_copy(Zp, p.Z);
-  g1_add_tail(r, p, U1, S1, H, R, Zp);
+  const fe X1 = fe_ld(p.X), Y1 = fe_ld(p.Y), Z1 = fe_ld(p.Z);
+  const fe z1z = fe_sq(Z1);
+  const fe H = fe_sub(fe_mul(fe_ld(x2), z1z), X1);  // H = x2 Z1^2 - X1
+  const fe R = fe_sub(fe_mul(fe_mul(fe_ld(y2), Z1), z1z), Y1);  // R = y2 Z1^3 - Y1
+  g1_add_tail(r, p, X1, Y1, H, R, Z1);
 }
 
 // ------------------------------------------------------------ rows
@@ -313,12 +477,8 @@ BLS_NOINL void g1_madd(g1p& r, const g1p& p, const u32 x2[BLS_W], const u32 y2[B
 // that fails a check before the ladder skips it.
 DEV bool bls_validate_row(const u32 x[BLS_W], const u32 y[BLS_W], bool valid) {
   if (!valid || !fe_lt_p(x) || !fe_lt_p(y)) return false;
-  u32 l[BLS_W], rh[BLS_W];
-  fe_mul(l, y, y);
-  fe_mul(rh, x, x);
-  fe_mul(rh, rh, x);
-  fe_add(rh, rh, BLS_B_M);
-  if (!fe_eq(l, rh)) return false;
+  const fe X = fe_ld(x);
+  if (!fe_eq(fe_sq(fe_ld(y)), fe_add(fe_mul(fe_sq(X), X), fe_ld(BLS_B_M)))) return false;
   g1p acc;
   fe_copy(acc.X, x);
   fe_copy(acc.Y, y);

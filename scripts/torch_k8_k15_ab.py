@@ -1,6 +1,6 @@
-"""Compare the Merkle tree kernel K8 and the BLS key-validation kernels
-K13 and K15 of several source trees on one CUDA card, in one process and
-in turns.
+"""Compare the Merkle tree kernel K8, the BLS key-validation kernels K13
+and K15 and the BLS sum K14 of several source trees on one CUDA card, in
+one process and in turns.
 
 Each tree's ``cometbft_tpu_torch/csrc/merkle.cu`` and ``bls.cu`` are
 built (all at once).  A tree is a directory (``.`` for this one, an
@@ -13,17 +13,22 @@ equal the plain versions: K8's every level of the 16,384-leaf proof tree,
 the 10,000-leaf validator-set tree and a tree of 4 x 256^2 + 1 leaves
 (K8 launched twice back to back), K13's and K15's ok bytes and K15's
 triple (with K14's finishing stage) on 10,000 BLS keys with four planted
-rows (wrong subgroup, x >= p, host-rejected, off the curve).  Then, by
-CUDA events and in turns (trees A..Z, then Z..A):
+rows (wrong subgroup, x >= p, host-rejected, off the curve), and K14's
+triple on the 10,000 keys without them (Z = 1).  Then, by CUDA events
+and in turns (trees A..Z, then Z..A):
 
   - ``k8_16384``, ``k8_10000``: one whole tree above its leaf hashes;
   - ``k15``: K15 and K14's finishing stage on the 10,000 rows (what
     chip_smoke.py times as validate_aggregate_g1);
   - ``k13``: K13 on the same rows;
+  - ``k14``: K14's tile and finishing stages on the 10,000 keys (what
+    chip_smoke.py times as aggregate_g1);
 
 each with ``host_ms``, the host's own time a call until it returns.
-Prints each tree's kernels' ptxas figures and build seconds, then one
-JSON line.  Needs the card and nvcc; from the repo's root:
+Prints each tree's kernels' ptxas figures, build seconds and, where the
+toolkit has ``cuobjdump``, the SASS instructions of each function of its
+bls library (``bls_sass``: the kernels and the out-of-line field and
+group routines), then one JSON line.  Needs the card and nvcc; from the repo's root:
 
     python3 scripts/torch_k8_k15_ab.py NAME=DIR[:PATCH[+PATCH...]] ...
 
@@ -37,6 +42,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -51,8 +57,11 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 import chip_smoke as CS  # noqa: E402  (its ptxas parser, key builder and sizes)
 
+SASS_FUNCTION = re.compile(r"\n\s*Function : ")
+SASS_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
+
 SEED = 20261017
-ITERS = {"k8_16384": 50, "k8_10000": 50, "k15": 5, "k13": 5}
+ITERS = {"k8_16384": 50, "k8_10000": 50, "k15": 5, "k13": 5, "k14": 20}
 WARMUP = 2
 OUT = os.path.join(ROOT, "build", "k8_k15_ab")  # the trees' sources (patched) and libraries
 SOURCES = ("merkle", "bls")
@@ -121,22 +130,65 @@ def k8(lib, flat, n, counter):
         _build.check(lib.k8_merkle_level(flat.data_ptr(), offs[lvl], sz, offs[lvl + 1], s), "k8_merkle_level")
 
 
+def sass_text(lib_path: str) -> str | None:
+    """``cuobjdump -sass`` of a built library (its errors after it), or
+    None where the toolkit has no cuobjdump."""
+    from cometbft_tpu_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    run = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True)
+    return run.stdout + run.stderr
+
+
+def sass_census(text: str | None) -> dict | None:
+    """SASS instructions of each kernel in ``sass_text``'s output, NOPs
+    left out, and of each routine it calls out of line (ptxas compiles a
+    copy of each into every kernel that calls it; the listing names only
+    the kernel, so a routine is its entry address and its call sites):
+    {kernel: {"instructions": n, "callees": [{"instructions": n,
+    "call_sites": k}, ...]}}, the callees by call sites, most first."""
+    if text is None:
+        return None
+    out = {}
+    for block in SASS_FUNCTION.split(text)[1:]:
+        name, body = block.split("\n", 1)
+        ins = [(int(a, 16), op) for a, op in SASS_INSTRUCTION.findall(body) if not op.startswith("NOP")]
+        if not ins:
+            continue
+        sites = {}
+        for _, op in ins:
+            for t in re.findall(r"CALL\.REL\.NOINC (0x[0-9a-f]+)", op):
+                sites[int(t, 16)] = sites.get(int(t, 16), 0) + 1
+        starts = sorted(sites) + [ins[-1][0] + 16]
+        callees = [{"instructions": sum(1 for a, _ in ins if lo <= a < hi), "call_sites": sites[lo]}
+                   for lo, hi in zip(starts, starts[1:])]
+        out[name.strip()] = {"instructions": len(ins), "callees": sorted(callees, key=lambda c: -c["call_sites"])}
+    return out
+
+
 def bls_rows(dev):
     """10,000 affine keys (secrets a + i b) with rows 17, 4,242, 7,777 and
     9,998 planted (wrong subgroup, x >= p, host-rejected, off the curve),
-    packed as the kernels take them."""
+    packed as the kernels take them; and the keys without the planted
+    rows, packed as K14 takes them (Z = R mod p)."""
     import torch_bls_corpus as BC
 
     from cometbft_tpu_torch.crypto import bls12381 as H
+    from cometbft_tpu_torch.ops import bls381 as B
 
     rng = np.random.default_rng(SEED)
     a, b = (int.from_bytes(rng.bytes(32), "big") % H.R for _ in range(2))
     pts = CS.bls_keys(H, a, b, CS.N_BLS)
+    Xk, Yk, _ = B.pack_affine(pts)
+    Zk = np.broadcast_to(B.ints_to_words_np([B.ONE_M]), Xk.shape).copy()
+    keys = [torch.from_numpy(t).to(dev) for t in (Xk, Yk, Zk)]
     sp = BC.special_rows()
     for i, kind in zip(CS.BLS_PLANTED, ("wrong subgroup", "x >= p", "host-rejected", "off curve")):
         pts[i] = sp[kind]
     X, Y, valid = BC.pack({"points": pts})
-    return [torch.from_numpy(t).to(dev) for t in (X, Y, valid.astype(np.uint8))]
+    return [torch.from_numpy(t).to(dev) for t in (X, Y, valid.astype(np.uint8))], keys
 
 
 def timed(fn, iters: int) -> tuple[float, float]:
@@ -174,7 +226,7 @@ def main() -> int:
     csrcs = {n: prepare(n, spec) for n, spec in trees.items()}
     procs = {(n, src): start_build(n, csrcs[n], src) for n in trees for src in SOURCES}
     t0 = time.perf_counter()
-    X, Y, valid = bls_rows(dev)  # keys while the trees build
+    (X, Y, valid), (Xk, Yk, Zk) = bls_rows(dev)  # keys while the trees build
     n_bls = X.shape[0]
     rng = np.random.default_rng(SEED)
     level0 = {n: torch.from_numpy(rng.integers(0, 256, size=(n, 32), dtype=np.uint8)).to(dev)
@@ -187,11 +239,14 @@ def main() -> int:
     want15 = B.validate_aggregate_g1_plain(X, Y, valid)
     # K15's output as one buffer: the triple (144 bytes), the ok bytes, the all-ok byte
     want15 = torch.cat([w.view(torch.uint8) for w in want15[1:]] + [want15[0].to(torch.uint8)])
+    want14 = torch.cat([w.view(torch.uint8) for w in B.aggregate_g1_plain(Xk, Yk, Zk)])
     tb = 4 * B.PT_WORDS
     print(f"inputs: {n_bls} BLS rows, trees of {sorted(level0)} leaves and the plain versions in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     libs, rec = {n: {} for n in trees}, {n: {"tree": trees[n]} for n in trees}
-    kernels = {"merkle": {"k8": "k8_kernel"}, "bls": {"k13": "k13_kernel", "k15": "k15_kernel"}}
+    kernels = {"merkle": {"k8": "k8_kernel"},
+               "bls": {"k15": "k15_kernel", "k14": "k14_kernel",
+                       "k14_finish": "k14_finish_kernel"}}
     failed = False
     for (n, src), (proc, out, t_start) in procs.items():
         report, _ = proc.communicate()
@@ -206,6 +261,9 @@ def main() -> int:
         rec[n].update({f"{k}_ptxas": v for k, v in rep["kernels"].items()},
                       **{f"{src}_build_s": secs, f"{src}_any_spill": rep["any_spill"]})
         print(f"{n}: {src}.cu built in {secs:.1f} s; {rep['kernels']}; spills {rep['any_spill']}", flush=True)
+        if src == "bls":
+            rec[n]["bls_sass"] = sass_census(sass_text(out))
+            print(f"{n}: bls SASS instructions a function {rec[n]['bls_sass']}", flush=True)
     if failed:
         return 1
 
@@ -215,6 +273,8 @@ def main() -> int:
     out15 = torch.empty((tb + n_bls + 1,), dtype=torch.uint8, device=dev)
     part = B._scratch(n_bls, dev)
     ok13 = torch.empty((n_bls + 1,), dtype=torch.uint8, device=dev)
+    out14 = torch.empty((tb,), dtype=torch.uint8, device=dev)
+    g14 = -(-Xk.shape[0] // B.TILE)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
 
     def k15(n):
@@ -228,6 +288,12 @@ def main() -> int:
         lib = libs[n]["bls"]
         _build.check(lib.k13_bls_validate(X.data_ptr(), Y.data_ptr(), valid.data_ptr(), ok13.data_ptr(),
                                           ok13[n_bls:].data_ptr(), n_bls, stream()), "k13")
+
+    def k14(n):
+        lib = libs[n]["bls"]
+        _build.check(lib.k14_bls_aggregate(Xk.data_ptr(), Yk.data_ptr(), Zk.data_ptr(), part.data_ptr(),
+                                           Xk.shape[0], stream()), "k14")
+        _build.check(lib.k14_bls_aggregate_finish(part.data_ptr(), g14, out14.data_ptr(), stream()), "finish")
 
     ok = True
     for n in libs:
@@ -247,6 +313,9 @@ def main() -> int:
         ok13[n_bls] = 1
         k13(n)
         eq["k13"] = bool(torch.equal(ok13[:n_bls], want15[tb:])) and int(ok13[n_bls]) == 0
+        out14.fill_(0xAA)
+        k14(n)
+        eq["k14"] = bool(torch.equal(out14, want14))
         rec[n]["equal_plain"] = eq
         ok &= all(eq.values())
         print(f"{n}: == plain {eq}", flush=True)
@@ -257,6 +326,7 @@ def main() -> int:
             "k8_10000": lambda: k8(libs[n]["merkle"], flats[10_000], 10_000, counter),
             "k15": lambda: k15(n),
             "k13": lambda: k13(n),
+            "k14": lambda: k14(n),
         }
 
     names = list(ITERS)

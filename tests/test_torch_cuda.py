@@ -757,6 +757,64 @@ def test_k14_matches_plain_and_host(dev, n):
     assert B.jac_to_affine_host(*(t.cpu() for t in got)) == H._to_affine(H._FP, acc)
 
 
+BLS_FIELD_PROBE = r"""
+#include <cuda_runtime.h>
+
+#include "bls381.cuh"
+
+// row i: fe_mul(a, b), fe_sq(a), fe_add(a, b), fe_sub(a, b)
+__global__ void field_kernel(const u32* A, const u32* Bw, u32* out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const fe a = fe_ld(A + BLS_W * i), b = fe_ld(Bw + BLS_W * i);
+  u32* o = out + 4 * BLS_W * i;
+  fe_copy(o, fe_mul(a, b).w);
+  fe_copy(o + BLS_W, fe_sq(a).w);
+  fe_copy(o + 2 * BLS_W, fe_add(a, b).w);
+  fe_copy(o + 3 * BLS_W, fe_sub(a, b).w);
+}
+
+extern "C" int field_run(const void* A, const void* Bw, void* out, int n) {
+  field_kernel<<<(n + 63) / 64, 64>>>((const u32*)A, (const u32*)Bw, (u32*)out, n);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def test_bls_field_device_form_matches_plain_at_edges(dev, tmp_path):
+    """bls381.cuh's field routines as nvcc builds them (the card's form:
+    fe_mulhi is mul.hi there) on every pair of the range's edge values
+    and seeded random pairs: fe_mul and fe_sq equal the plain multiply
+    (ops/bls381.mul) and Python integers, fe_add and fe_sub Python's."""
+    import ctypes
+    import os
+    import subprocess
+
+    import torch_bls_corpus as C
+
+    from cometbft_tpu_torch import _build
+    from cometbft_tpu_torch.ops import bls381 as B
+
+    src, lib_path = tmp_path / "field.cu", tmp_path / "libfield.so"
+    src.write_text(BLS_FIELD_PROBE)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC, "-o", str(lib_path), str(src)],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(os.fspath(lib_path))
+    lib.field_run.argtypes, lib.field_run.restype = [ctypes.c_void_p] * 3 + [ctypes.c_int], ctypes.c_int
+    xs, ys = C.field_pairs(29)
+    a, b = (torch.from_numpy(B.ints_to_words_np(v)) for v in (xs, ys))
+    out = torch.empty((len(xs), 4 * B.NWORDS), dtype=torch.int32, device=dev)
+    ad, bd = a.to(dev), b.to(dev)
+    assert lib.field_run(ad.data_ptr(), bd.data_ptr(), out.data_ptr(), len(xs)) == 0
+    torch.cuda.synchronize()
+    got = out.cpu()
+    assert torch.equal(got[:, :B.NWORDS], B.mul(a, b))
+    assert torch.equal(got[:, B.NWORDS:2 * B.NWORDS], B.mul(a, a))
+    P, RI = B.P, pow(B.R_MONT, -1, B.P)
+    want = [[x * y * RI % P, x * x * RI % P, (x + y) % P, (x - y) % P] for x, y in zip(xs, ys)]
+    assert [B.words_to_ints(got[i].view(4, B.NWORDS)) for i in range(len(xs))] == want
+
+
 def test_bls_verifier_takes_each_route(dev, monkeypatch):
     """An aggregate commit cold (K15 + K14's finishing stage), warm (K14)
     and singleton rows (K13), verdicts equal to the host verifier's."""

@@ -1,6 +1,8 @@
 """Seeded BLS12-381 G1 rows for the key-validation kernels K13 and K15,
 shared by tests/test_torch_bls_rows_host.py, tests/test_torch_cuda.py and
-chip_smoke.py: subgroup keys, and every class a row can fail on — the
+chip_smoke.py (and the field values at the range's edges that
+tests/test_torch_bls_field_host.py and tests/test_torch_cuda.py hold the
+header's field routines to): subgroup keys, and every class a row can fail on — the
 host decode's mask, x >= p, off the curve, on the curve outside the
 subgroup, and points of small order (3 and 11), whose ladder meets equal,
 opposite and infinite operands — placed at the first and last row of
@@ -145,3 +147,27 @@ def oracle(point) -> bool:
     if point is None or point[0] >= P:
         return False
     return H._on_curve(H._FP, point) and H._in_subgroup(H._FP, point)
+
+
+def field_edge_values() -> list[int]:
+    """Field values at the range's edges: 0, 1, 2, p - 1, p - 2, R mod p
+    (one), R^2 mod p, values beside p / 2 and 2^381, and 2^k mod p and
+    2^k - 1 at word and half-word edges."""
+    R_ = B.R_MONT
+    ks = (31, 32, 63, 64, 128, 192, 255, 256, 320, 352, 380, 383, 384, 400)
+    vals = [0, 1, 2, P - 1, P - 2, R_ % P, R_ * R_ % P, (P - 1) // 2, (P + 1) // 2, (1 << 381) - 1 - P % 7]
+    vals += [pow(2, k, P) for k in ks] + [(1 << k) - 1 for k in (32, 64, 352, 380)]
+    return [v % P for v in vals]
+
+
+def field_random_values(n: int, seed: int) -> list[int]:
+    rng = np.random.default_rng(seed)
+    return [int.from_bytes(rng.bytes(48), "little") % P for _ in range(n)]
+
+
+def field_pairs(seed: int, n_random: int = 400) -> tuple[list[int], list[int]]:
+    """Every ordered pair of the edge values, then n_random seeded pairs."""
+    e = field_edge_values()
+    xs = [x for x in e for _ in e] + field_random_values(n_random, seed)
+    ys = [y for _ in e for y in e] + field_random_values(n_random, seed + 1)
+    return xs, ys
