@@ -168,6 +168,10 @@ RUN_9M = {"K5 16,384 lanes": 3.2597, "K5 256 lanes": 2.9878, "K3 10,000 keys": 9
           "K3 128 keys (wrapper)": 7.2884, "uncached p50": 24.86, "light-client p50": 4.53,
           "set change first call": 160.8, "churn build beside it": 131.6, "churn build alone": 15.8,
           "peak MiB": 633.6}
+# Run 13q (this script on an NVIDIA H100 80GB HBM3 at 700 W, before K2's and
+# K14's redesign; PERF.md), printed beside this run's in the logs; never in
+# the kernels line
+RUN_13Q = {"K2 10,000 rows": 0.0370, "K14 10,000 rows": 0.2541, "K14 finishing stage": 0.1643}
 # The one-thread K4's time at 10,000 lanes (this script on an NVIDIA H100 80GB HBM3 at 700 W, before
 # the redesign; PERF.md's run J), printed in phase 4's log beside this run's; never in the kernels line
 K4_MS_ONE_THREAD = 0.7288
@@ -256,6 +260,30 @@ def cuda_ms(fn, iters: int, warmup: int) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean time of fn() on the card by CUDA events around one replay of a
+    CUDA graph that holds ``iters`` calls: no host time between launches,
+    so a kernel that takes less time than its wrapper's host cost (ctypes
+    and Python, ~12-25 us a call) is timed alone, which cuda_ms cannot."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # a warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -1178,7 +1206,8 @@ def bls_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_ab
         bounds[name] = ("operations", mul_adds * OPS_PER_MULADD / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S)
         bls_work[name] = {"field_muls": fm, "field_squares": sq, "mul_adds": mul_adds,
                           "mul_adds_all_at_288": fm * MULADDS_BLS_MUL}
-        how = (f"both launches, the finishing stage alone {finish_ms:.4f} ms" if name == "aggregate_g1"
+        how = (f"both launches, the finishing stage alone {finish_ms:.4f} ms; run 13q: "
+               f"{RUN_13Q['K14 10,000 rows']} / {RUN_13Q['K14 finishing stage']} ms" if name == "aggregate_g1"
                else f"{rows_ladder} rows through the ladder of {ladder_muls} multiplies")
         log(f"[20] {name}: {times[name][0]:.4f} ms ({how}); work {fm} field multiplies, {sq} of them "
             f"squares: {mul_adds} multiply-adds for the bound (a square at {MULADDS_BLS_SQ}), "
@@ -1203,7 +1232,10 @@ def bls_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_ab
     for name, f in ptx.items():
         require(f.get("spill_bytes", 1) == 0, f"{name} spills: {f}")
     require(rep["any_spill"] == 0, f"a function of bls.cu spills {rep['any_spill']} bytes")
-    threads = {"validate_g1": (1, 32), "aggregate_g1": (1, B.TILE), "aggregate_g1_finish": (1, B.FINISH),
+    # (threads a row, rows a block); K14's two stages run an add on a group of
+    # B.GROUP threads, one group an add of a tree's first level
+    threads = {"validate_g1": (1, 32), "aggregate_g1": (B.GROUP // 2, B.TILE),
+               "aggregate_g1_finish": (B.FINISH_GROUPS * B.GROUP // B.FINISH, B.FINISH),
                "validate_aggregate_g1": (1, B.TILE)}
     bls_shapes = {name: {"threads_per_row": tr, "rows_per_block": rb,
                          "blocks_per_sm": blocks_per_sm(ptx[name]["registers"], ptx[name]["smem_bytes"], tr * rb),
@@ -1213,6 +1245,12 @@ def bls_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_ab
     log(f"[20] K13 and K15 (one kernel, k15_kernel): {k15p['registers']} registers, "
         f"{k15p.get('stack_bytes', 0)} bytes of stack, {k15p['spill_bytes']} spilled; bls.cu built in "
         f"{_build.BUILD_LOG['bls']['seconds']:.1f} s")
+    k14p, k14f = ptx["aggregate_g1"], ptx["aggregate_g1_finish"]
+    log(f"[20] K14 {times['aggregate_g1'][0]:.4f} ms at {N_BLS} rows, the finishing stage alone {finish_ms:.4f} "
+        f"(run 13q: {RUN_13Q['K14 10,000 rows']} / {RUN_13Q['K14 finishing stage']} ms); a group of {B.GROUP} "
+        f"threads an add; tile stage {k14p['registers']} registers, {k14p.get('stack_bytes', 0)} bytes of stack, "
+        f"{k14p['spill_bytes']} spilled; finishing stage ({B.FINISH_GROUPS * B.GROUP} threads) "
+        f"{k14f['registers']} registers, {k14f.get('stack_bytes', 0)} bytes of stack, {k14f['spill_bytes']} spilled")
 
     src = "cometbft_tpu_torch/csrc/bls.cu"
     meta = {
@@ -2041,6 +2079,16 @@ def main() -> int:
         + f"; K3 {t['build_a_tables'][0]:.4f} ms at {V_MAIN} keys (run 9m: {RUN_9M['K3 10,000 keys']} ms), "
         f"{comb.BUILD_THREADS_PER_KEY} threads a key, {k3_threads} a block, {k3_shape['blocks_per_sm']} blocks an "
         f"SM; {k3p['registers']} registers, {k3p.get('stack_bytes', 0)} bytes of stack, {k3p['spill_bytes']} spilled")
+
+    # K2's ptxas figures (a spill fails the run) and its time beside run 13q's
+    sha_log = _build.BUILD_LOG["sha2"]
+    k2p = ptxas_kernels(sha_log["ptxas"], lambda line: "k2" if "k2_kernel" in line else None)["kernels"]["k2"]
+    require(k2p.get("spill_bytes", 1) == 0, f"K2 spills: {k2p}")
+    k2_graph_ms = graph_ms(lambda: sha2.launch_k2(blocks, active, dig), TIMING["sha512_blocks"][0])
+    log(f"[4] K2 {t['sha512_blocks'][0]:.4f} ms at {V_MAIN} rows x {nb} blocks ({sum_active} active; run 13q: "
+        f"{RUN_13Q['K2 10,000 rows']} ms), {k2_graph_ms:.4f} ms with its launches in a CUDA graph (no host time "
+        f"between them); {k2p['registers']} registers, {k2p.get('stack_bytes', 0)} bytes of stack, "
+        f"{k2p['spill_bytes']} spilled")
 
     # ---------------------------------------------------- 5. uncached path
     # the commit's 10,000 items with phase 2's planted faults, through the

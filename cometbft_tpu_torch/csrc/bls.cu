@@ -15,14 +15,23 @@
 // K14 k14_bls_aggregate + k14_bls_aggregate_finish replace :273
 // aggregate_g1: the tile stage sums each tile of BLS_TILE rows in a
 // shared-memory tree (row t + s into row t, s = BLS_TILE / 2, ..., 1) to
-// one partial per block; the finishing stage, one block of
-// BLS_FINISH threads, folds partial j into lane j mod BLS_FINISH in
-// order and sums the lanes in the same tree.  Two launches a call.
+// one partial per block; the finishing stage, one block, folds partial j
+// into lane j mod BLS_FINISH in order and sums the BLS_FINISH lanes in
+// the same tree.  Two launches a call.  Each add of both trees is shared
+// by a group of BLS_GROUP threads (bls381_group.cuh: five phases of
+// independent multiplies), one group an add of a tree's first level.
 //
 // K15 k15_bls_validate_aggregate replaces :365 validate_aggregate_g1:
-// K13's row body, then K14's tile stage over the rows, a row that did
-// not validate entering as the identity; K14's finishing stage completes
-// the sum.
+// K13's row body, then a tile tree over the rows of one thread an add
+// (g1_add), a row that did not validate entering as the identity; K14's
+// finishing stage completes the sum.  K15's tiles keep this tree rather
+// than K14's group tree: with bg_tree in the kernel, ptxas compiles the
+// kernel body's ladder otherwise (inline: 162 registers and 240 B of
+// stack against 166 and 384) and the rows take ~0.09 ms longer, more than
+// the group tree saves (~0.04).  In turns on the H100, K15 took 3.58-3.62
+// ms with bg_tree inline (also with the body shaped as here, or in a
+// kernel instance of its own) and 4.09 with it out of line, against
+// 3.53-3.57 with this tree (PERF.md).
 //
 // Differences of route from the TPU programs, with identical results:
 // the ladder starts from acc = P instead of doubling the identity (the
@@ -39,19 +48,25 @@
 // multiplies at ~2.4 warps an SM; the product-scanning fe_mul and the
 // dedicated fe_sq (bls381.cuh) shorten each multiply, and field elements
 // pass to them by value, in registers; field multiplies and point
-// operations stay out of line, so the ladder's code stays small; the
+// operations stay out of line, so the ladder's code stays small; K15's
 // tree's points in shared memory with the coordinate word as the slow
 // index (conflict-free loads), tiles of 32 rows so that 10,000 rows
-// spread over every SM.
+// spread over every SM.  K14 does not reach its bound: its time is the
+// trees' depth (5 levels in a tile, 9 in the finishing stage over 313
+// partials) times one add's latency, so a group of threads shares each
+// add; K14's points sit at a pitch of 37 words (bank-shifted rows).
 //
 // All launch on the caller's stream, allocate nothing, and return
 // cudaGetLastError().
 #include <cuda_runtime.h>
 
-#include "bls381.cuh"
+#include "bls381_group.cuh"
 
 #define BLS_TILE 32     // rows of one tile-stage block (ops/bls381.py TILE)
-#define BLS_FINISH 256  // threads of the finishing stage (ops/bls381.py FINISH)
+#define BLS_FINISH 256  // lanes of the finishing stage (ops/bls381.py FINISH)
+#define BLS_GROUP 4     // threads that share one add of K14's trees (bls381_group.cuh BG_G)
+#define BLS_FINISH_GROUPS 128  // groups of the finishing stage: one an add of its first level
+static_assert(BLS_GROUP == BG_G, "K14's groups are bls381_group.cuh's");
 
 __device__ __forceinline__ void sm_store(u32* sm, int stride, int t, const g1p& p) {
   for (int k = 0; k < BLS_W; k++) {
@@ -95,23 +110,21 @@ __device__ __forceinline__ void load_row(u32 w[BLS_W], const u32* src, int i) {
   for (int k = 0; k < BLS_W; k++) w[k] = src[(size_t)i * BLS_W + k];
 }
 
-__global__ void __launch_bounds__(BLS_TILE)
+// K14's tile stage: the tile's rows (the identity past n) into shared
+// memory, summed by groups of BLS_GROUP threads (bls381_group.cuh).
+__global__ void __launch_bounds__(BLS_TILE / 2 * BLS_GROUP)
     k14_kernel(const u32* __restrict__ X, const u32* __restrict__ Y,
                const u32* __restrict__ Z, u32* __restrict__ partials, int n) {
-  __shared__ u32 sm[BLS_PT * BLS_TILE];
-  int t = threadIdx.x, i = blockIdx.x * BLS_TILE + t;
-  g1p p;
-  if (i < n) {
-    load_row(p.X, X, i);
-    load_row(p.Y, Y, i);
-    load_row(p.Z, Z, i);
-  } else {
-    g1_set_identity(p);
+  __shared__ u32 pts[BLS_TILE * BG_PITCH];
+  __shared__ u32 files[BLS_TILE / 2 * BG_FILE];
+  for (int w = threadIdx.x; w < BLS_TILE * BLS_PT; w += blockDim.x) {
+    const int t = w / BLS_PT, c = w % BLS_PT / BLS_W, k = w % BLS_W, i = blockIdx.x * BLS_TILE + t;
+    const u32* src = c == 0 ? X : c == 1 ? Y : Z;
+    pts[t * BG_PITCH + c * BLS_W + k] = i < n ? src[(size_t)i * BLS_W + k] : (c < 2 ? BLS_ONE_M[k] : 0u);
   }
-  sm_store(sm, BLS_TILE, t, p);
   __syncthreads();
-  sm_tree(sm, BLS_TILE);
-  sm_emit(partials + (size_t)blockIdx.x * BLS_PT, sm, BLS_TILE);
+  bg_tree(pts, BLS_TILE, files);
+  for (int k = threadIdx.x; k < BLS_PT; k += blockDim.x) partials[(size_t)blockIdx.x * BLS_PT + k] = pts[k];
 }
 
 __global__ void __launch_bounds__(BLS_TILE)
@@ -143,25 +156,32 @@ __global__ void __launch_bounds__(BLS_TILE)
   sm_emit(partials + (size_t)blockIdx.x * BLS_PT, sm, BLS_TILE);
 }
 
-__global__ void __launch_bounds__(BLS_FINISH)
+// K14's finishing stage, one block of BLS_FINISH_GROUPS groups: lane j
+// (j < BLS_FINISH) starts as partial j (the identity past g), then adds
+// partials j + BLS_FINISH, j + 2 BLS_FINISH, ... in order; the lanes are
+// summed in the tree.  Shared memory (dynamic): the lanes' points, then a
+// value file a group.
+#define BLS_FINISH_THREADS (BLS_FINISH_GROUPS * BLS_GROUP)
+#define BLS_FINISH_SMEM ((BLS_FINISH * BG_PITCH + BLS_FINISH_GROUPS * BG_FILE) * 4)
+
+__global__ void __launch_bounds__(BLS_FINISH_THREADS)
     k14_finish_kernel(const u32* __restrict__ partials, int g, u32* __restrict__ out) {
-  __shared__ u32 sm[BLS_PT * BLS_FINISH];
-  int t = threadIdx.x;
-  g1p acc, q;
-  g1_set_identity(acc);
-  for (int j = t; j < g; j += BLS_FINISH) {
-    const u32* src = partials + (size_t)j * BLS_PT;
-    for (int k = 0; k < BLS_W; k++) {
-      q.X[k] = src[k];
-      q.Y[k] = src[BLS_W + k];
-      q.Z[k] = src[2 * BLS_W + k];
-    }
-    g1_add(acc, acc, q);
+  extern __shared__ u32 dsm[];
+  u32 *pts = dsm, *files = dsm + BLS_FINISH * BG_PITCH;
+  for (int w = threadIdx.x; w < BLS_FINISH * BLS_PT; w += blockDim.x) {
+    const int j = w / BLS_PT, k = w % BLS_PT;
+    pts[j * BG_PITCH + k] = j < g ? partials[w] : (k < 2 * BLS_W ? BLS_ONE_M[k % BLS_W] : 0u);
   }
-  sm_store(sm, BLS_FINISH, t, acc);
   __syncthreads();
-  sm_tree(sm, BLS_FINISH);
-  sm_emit(out, sm, BLS_FINISH);
+  const int grp = threadIdx.x / BLS_GROUP, tid = threadIdx.x % BLS_GROUP;
+  const unsigned mask = bg_mask(threadIdx.x);
+  for (int f = BLS_FINISH; f < g; f += BLS_FINISH)
+    for (int t = grp; t < BLS_FINISH && t + f < g; t += BLS_FINISH_GROUPS)
+      bg_add(pts + t * BG_PITCH, pts + t * BG_PITCH, partials + (size_t)(t + f) * BLS_PT, files + grp * BG_FILE,
+             tid, mask);
+  __syncthreads();
+  bg_tree(pts, BLS_FINISH, files);
+  for (int k = threadIdx.x; k < BLS_PT; k += blockDim.x) out[k] = pts[k];
 }
 
 // X, Y: n x 12 words (affine, Montgomery); valid: n bytes; ok: n bytes
@@ -180,7 +200,7 @@ extern "C" int k13_bls_validate(const void* X, const void* Y, const void* valid,
 extern "C" int k14_bls_aggregate(const void* X, const void* Y, const void* Z, void* partials,
                                  int n, void* stream) {
   if (n > 0) {
-    dim3 grid((n + BLS_TILE - 1) / BLS_TILE), block(BLS_TILE);
+    dim3 grid((n + BLS_TILE - 1) / BLS_TILE), block(BLS_TILE / 2 * BLS_GROUP);
     k14_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
         (const u32*)X, (const u32*)Y, (const u32*)Z, (u32*)partials, n);
   }
@@ -202,7 +222,12 @@ extern "C" int k15_bls_validate_aggregate(const void* X, const void* Y, const vo
 
 // partials: g x 36 words; out: 36 words (X, Y, Z of the sum).
 extern "C" int k14_bls_aggregate_finish(const void* partials, int g, void* out, void* stream) {
-  k14_finish_kernel<<<1, BLS_FINISH, 0, (cudaStream_t)stream>>>((const u32*)partials, g,
-                                                               (u32*)out);
+  // above 48 KB of shared memory a block is only dynamic, by this attribute
+  // (a device's own: set on every call, on the caller's current device)
+  cudaError_t e = cudaFuncSetAttribute(k14_finish_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       BLS_FINISH_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  k14_finish_kernel<<<1, BLS_FINISH_THREADS, BLS_FINISH_SMEM, (cudaStream_t)stream>>>((const u32*)partials, g,
+                                                                                     (u32*)out);
   return (int)cudaGetLastError();
 }

@@ -13,13 +13,23 @@
 // sha512_blocks: one thread per row runs that row's active compressions
 // on native 64-bit words (the TPU version emulated each 64-bit word as a
 // pair of u32).  Bound: operations — 80 rounds of ~60 64-bit integer
-// operations per block against 256 bytes in and 64 out per row.
+// operations per block against 256 bytes in and 64 out per row.  What
+// the design does about it: a row's chain of 80 rounds a block is short
+// next to the instructions around it, so each 128-byte block is read as
+// eight 16-byte loads (issued while the block before it compresses) and
+// the digest written as four 16-byte stores, where a byte a load and a
+// store took 128 load instructions a block and 64 stores a row, each of
+// a warp's touching a cache line a thread (rows lie nblocks x 128 bytes
+// apart); K2_THREADS rows a block spread 10,000 rows over every SM.  blocks and digest must be 16-byte aligned (launch_k2
+// checks).
 //
 // Both launch on the caller's stream, allocate nothing, and return
 // cudaGetLastError().
 #include <cuda_runtime.h>
 
 #include "sha2.cuh"
+
+#define K2_THREADS 64  // rows of a K2 block: 10,000 rows make 157 blocks
 
 __global__ void k1_kernel(const uint8_t* __restrict__ payload,
                           const uint8_t* __restrict__ pubs,
@@ -37,9 +47,9 @@ __global__ void k1_kernel(const uint8_t* __restrict__ payload,
   if (col == 0) active[v] = row[67] == 1 ? nbr : 0;
 }
 
-__global__ void k2_kernel(const uint8_t* __restrict__ blocks,
-                          const int32_t* __restrict__ active,
-                          uint8_t* __restrict__ digest, int V, int nblocks) {
+__global__ void __launch_bounds__(K2_THREADS)
+    k2_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict__ active,
+              uint8_t* __restrict__ digest, int V, int nblocks) {
   int v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= V) return;
   sha512_row(digest + (size_t)v * 64, blocks + (size_t)v * nblocks * 128,
@@ -64,8 +74,7 @@ extern "C" int k2_sha512_blocks(const void* blocks, const void* active,
                                 void* digest, int V, int nblocks,
                                 void* stream) {
   if (V > 0) {
-    int threads = 64;
-    k2_kernel<<<(V + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+    k2_kernel<<<(V + K2_THREADS - 1) / K2_THREADS, K2_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)blocks, (const int32_t*)active, (uint8_t*)digest, V,
         nblocks);
   }

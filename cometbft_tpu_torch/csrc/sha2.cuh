@@ -64,16 +64,41 @@ DCONST uint64_t SHA512_K[80] = {
 
 DEV uint64_t rotr64(uint64_t x, int n) { return (x >> n) | (x << (64 - n)); }
 
-DEV void sha512_compress(uint64_t st[8], const uint8_t* blk) {
+// x with its bytes reversed (one byte permute on the card)
+DEV uint32_t bswap32(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return __byte_perm(x, 0, 0x0123);
+#else
+  return (x >> 24) | ((x >> 8) & 0xff00u) | ((x << 8) & 0xff0000u) | (x << 24);
+#endif
+}
+
+// The 128 bytes at p as 32 little-endian words: on the card eight 16-byte
+// loads (p 16-byte aligned), on the host byte by byte
+DEV void sha512_load(uint32_t c[32], const uint8_t* p) {
+#ifdef __CUDA_ARCH__
+  UNROLL
+  for (int q = 0; q < 8; q++) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + q);
+    c[4 * q] = v.x;
+    c[4 * q + 1] = v.y;
+    c[4 * q + 2] = v.z;
+    c[4 * q + 3] = v.w;
+  }
+#else
+  for (int i = 0; i < 32; i++)
+    c[i] = (uint32_t)p[4 * i] | ((uint32_t)p[4 * i + 1] << 8) | ((uint32_t)p[4 * i + 2] << 16) |
+           ((uint32_t)p[4 * i + 3] << 24);
+#endif
+}
+
+// One compression of a block given as sha512_load's words: message word i
+// is bytes 8i..8i+7 big-endian, two byte-reversed little-endian words.
+DEV void sha512_compress(uint64_t st[8], const uint32_t c[32]) {
   uint64_t w[16];
   UNROLL
-  for (int i = 0; i < 16; i++) {
-    uint64_t x = 0;
-    UNROLL
-    for (int k = 0; k < 8; k++) x = (x << 8) | blk[8 * i + k];
-    w[i] = x;
-  }
-  uint64_t a = st[0], b = st[1], c = st[2], d = st[3];
+  for (int i = 0; i < 16; i++) w[i] = ((uint64_t)bswap32(c[2 * i]) << 32) | bswap32(c[2 * i + 1]);
+  uint64_t a = st[0], b = st[1], cc = st[2], d = st[3];
   uint64_t e = st[4], f = st[5], g = st[6], h = st[7];
   UNROLL
   for (int t = 0; t < 80; t++) {
@@ -87,24 +112,26 @@ DEV void sha512_compress(uint64_t st[8], const uint8_t* blk) {
       wt = w[t & 15] + s0 + w[(t + 9) & 15] + s1;
       w[t & 15] = wt;
     }
-    uint64_t S1 = rotr64(e, 14) ^ rotr64(e, 18) ^ rotr64(e, 41);
-    uint64_t ch = (e & f) ^ (~e & g);
-    uint64_t t1 = h + S1 + ch + SHA512_K[t] + wt;
-    uint64_t S0 = rotr64(a, 28) ^ rotr64(a, 34) ^ rotr64(a, 39);
-    uint64_t mj = (a & b) ^ (a & c) ^ (b & c);
-    uint64_t t2 = S0 + mj;
+    // h + K_t + W_t (and d plus it) wait on no word of this round, so
+    // from e to the next e run only ch and S1 (in parallel) and two adds
+    const uint64_t hk = h + SHA512_K[t] + wt, dhk = d + hk;
+    const uint64_t ch = (e & f) ^ (~e & g);
+    const uint64_t S1 = rotr64(e, 14) ^ rotr64(e, 18) ^ rotr64(e, 41);
+    const uint64_t S0 = rotr64(a, 28) ^ rotr64(a, 34) ^ rotr64(a, 39);
+    const uint64_t mj = (a & b) ^ (a & cc) ^ (b & cc);
+    const uint64_t t1 = (hk + ch) + S1;
     h = g;
     g = f;
     f = e;
-    e = d + t1;
-    d = c;
-    c = b;
+    e = (dhk + ch) + S1;
+    d = cc;
+    cc = b;
     b = a;
-    a = t1 + t2;
+    a = t1 + (S0 + mj);
   }
   st[0] += a;
   st[1] += b;
-  st[2] += c;
+  st[2] += cc;
   st[3] += d;
   st[4] += e;
   st[5] += f;
@@ -114,20 +141,36 @@ DEV void sha512_compress(uint64_t st[8], const uint8_t* blk) {
 
 // Digest of one row: `active` compressions of its nblocks blocks (the
 // state stays frozen past a row's own final block, as in the reference's
-// per-row active count), written big-endian to out[64].
-DEV void sha512_row(uint8_t out[64], const uint8_t* blocks, int nblocks,
-                    int active) {
+// per-row active count; bytes past it are never read), written
+// big-endian to out[64]: on the card four 16-byte stores (out 16-byte
+// aligned).  Each block's words are loaded before the block ahead of it
+// compresses.
+DEV void sha512_row(uint8_t out[64], const uint8_t* blocks, int nblocks, int active) {
   uint64_t st[8] = {0x6a09e667f3bcc908ull, 0xbb67ae8584caa73bull,
                     0x3c6ef372fe94f82bull, 0xa54ff53a5f1d36f1ull,
                     0x510e527fade682d1ull, 0x9b05688c2b3e6c1full,
                     0x1f83d9abfb41bd6bull, 0x5be0cd19137e2179ull};
+  const int n = active < nblocks ? active : nblocks;
+  uint32_t c[32], next[32];
+  if (n > 0) sha512_load(next, blocks);
   NOUNROLL
-  for (int b = 0; b < nblocks && b < active; b++) {
-    sha512_compress(st, blocks + (size_t)b * 128);
+  for (int b = 0; b < n; b++) {
+    UNROLL
+    for (int i = 0; i < 32; i++) c[i] = next[i];
+    if (b + 1 < n) sha512_load(next, blocks + (size_t)(b + 1) * 128);
+    sha512_compress(st, c);
   }
+  uint32_t o[16];
   UNROLL
   for (int i = 0; i < 8; i++) {
-    UNROLL
-    for (int k = 0; k < 8; k++) out[8 * i + k] = (uint8_t)(st[i] >> (56 - 8 * k));
+    o[2 * i] = bswap32((uint32_t)(st[i] >> 32));
+    o[2 * i + 1] = bswap32((uint32_t)st[i]);
   }
+#ifdef __CUDA_ARCH__
+  UNROLL
+  for (int q = 0; q < 4; q++)
+    reinterpret_cast<uint4*>(out)[q] = make_uint4(o[4 * q], o[4 * q + 1], o[4 * q + 2], o[4 * q + 3]);
+#else
+  for (int i = 0; i < 64; i++) out[i] = (uint8_t)(o[i / 4] >> (8 * (i % 4)));
+#endif
 }

@@ -7,8 +7,8 @@ Kernels (CUDA C++ in csrc/bls.cu; per-row arithmetic in csrc/bls381.cuh):
   K14 ``aggregate_g1``           replaces :273 (a tile stage, then a
       finishing stage: two launches a call)
   K15 ``validate_aggregate_g1``  replaces :365 (K13's row body, then
-      K14's tile stage over the rows that validated; K14's finishing
-      stage completes the sum)
+      a tile tree in K14's order over the rows that validated; K14's
+      finishing stage completes the sum)
 
 What they compute is the JAX package's: KeyValidate of affine pubkeys
 (on the curve y^2 = x^3 + 4, [r]P = infinity by double-and-add over the
@@ -26,10 +26,12 @@ infinity Z = 0; the identity the kernels write is (R mod p, R mod p, 0).
 Summation order: K14's tile stage sums tiles of ``TILE`` rows in a
 binary tree (row t + s into row t, s = TILE / 2, ..., 1), its finishing
 stage folds tile partial j into lane j mod ``FINISH`` in order and sums
-the lanes in the same tree.  Jacobian coordinates depend on that order
-(the JAX package pairs rows i and i + half), so parity with the JAX
-package is on the affine point; the plain versions follow the kernels'
-order, so kernel and plain agree word for word on the triple too.
+the lanes in the same tree (each add on a group of ``GROUP`` threads,
+csrc/bls381_group.cuh, with g1_add's values).  Jacobian coordinates
+depend on that order (the JAX package pairs rows i and i + half), so
+parity with the JAX package is on the affine point; the plain versions
+follow the kernels' order, so kernel and plain agree word for word on
+the triple too.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 PyTorch version for CPU tensors; ``LAUNCHES`` counts kernel launches.
@@ -53,7 +55,9 @@ R_MONT = 1 << 384
 R_INV = pow(R_MONT, P - 2, P)
 P_INV32 = (-pow(P, -1, 1 << 32)) % (1 << 32)  # -p^-1 mod 2^32, the CIOS multiplier
 TILE = 32  # rows of one block of K14's and K15's tile stage
-FINISH = 256  # threads of K14's finishing stage
+FINISH = 256  # lanes of K14's finishing stage
+GROUP = 4  # threads that share one add of K14's trees (csrc/bls.cu BLS_GROUP)
+FINISH_GROUPS = 128  # groups of K14's finishing stage (csrc/bls.cu BLS_FINISH_GROUPS)
 PT_WORDS = 3 * NWORDS
 
 LAUNCHES = {

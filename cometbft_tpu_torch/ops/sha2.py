@@ -227,6 +227,8 @@ def sha512_blocks(blocks: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     if blocks.device.type != "cuda":
         raise ValueError(f"unsupported device {blocks.device}")
     blocks = blocks.contiguous()
+    if blocks.data_ptr() % 16:  # K2 loads 16 bytes at a time: a misaligned view goes to a fresh allocation
+        blocks = blocks.clone()
     active = active.to(torch.int32).contiguous()
     digest = torch.empty((blocks.shape[0], 64), dtype=torch.uint8, device=blocks.device)
     launch_k2(blocks, active, digest)
@@ -234,7 +236,19 @@ def sha512_blocks(blocks: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
 
 
 def launch_k2(blocks, active, digest) -> None:
-    """K2 into a preallocated digest on the current stream."""
+    """K2 into a preallocated digest on the current stream.
+
+    K2 reads each 128-byte block as eight 16-byte loads and writes each
+    digest as four 16-byte stores, so ``blocks`` and ``digest`` must be
+    16-byte aligned; there is no slower route.  Every caller's are: K1's
+    and sha512_blocks's fresh allocations (sha512_blocks copies a
+    misaligned view into one), the uncached
+    staging buffer's block section at byte offset bucket x 100 with the
+    bucket a power of two of at least 16 (models/verifier.stage_batch),
+    and the sharded plane's row ranges of a (V, nb, 128) tensor
+    (parallel/verify.py)."""
+    if blocks.data_ptr() % 16 or digest.data_ptr() % 16:
+        raise ValueError("K2 loads and stores 16 bytes at a time: blocks and digest must be 16-byte aligned")
     with torch.cuda.device(blocks.device):
         code = _build.lib("sha2").k2_sha512_blocks(
             blocks.data_ptr(), active.data_ptr(), digest.data_ptr(),

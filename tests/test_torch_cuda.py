@@ -58,6 +58,51 @@ def test_k1_k2_match_plain(dev, case):
     assert torch.equal(sha2.sha512_blocks(blocks, active), sha2.sha512_blocks_plain(blocks, active))
 
 
+@pytest.mark.parametrize("n,nb", [(1, 2), (31, 2), (33, 2), (10_001, 2), (16_384, 3)])
+def test_k2_matches_plain_and_hashlib(dev, n, nb):
+    """K2 at a ragged warp, the main path's 10,000 rows and one, and the
+    uncached path's 16,384 lanes of 1-3 active blocks, stale bytes past
+    each row's end: equal to the plain version and hashlib, rows at
+    active = 0 keeping the initial state."""
+    import torch_sha_corpus as SC
+
+    from cometbft_tpu_torch.ops import sha2
+
+    msgs, blocks, active = SC.stale_rows(np.random.default_rng(n), n, nb)
+    b, a = torch.from_numpy(blocks).to(dev), torch.from_numpy(active).to(dev)
+    got = sha2.sha512_blocks(b, a)
+    assert torch.equal(got, sha2.sha512_blocks_plain(b, a))
+    assert [bytes(r) for r in got.cpu().numpy()] == SC.digests(msgs, active)
+
+
+def test_k2_aligned_view_and_misaligned_refusal(dev):
+    """K2 on a 16-byte-aligned view at a nonzero offset of a larger buffer
+    (as the uncached staging hands it over) equals the plain version; a
+    view 8 bytes off passes through sha512_blocks (copied to a fresh,
+    aligned allocation) and equals the plain version, while launch_k2
+    itself refuses it, blocks or digest, with ValueError."""
+    import torch_sha_corpus as SC
+
+    from cometbft_tpu_torch.ops import sha2
+
+    _, blocks, active = SC.stale_rows(np.random.default_rng(16), 100, 2)
+    flat = torch.zeros((blocks.nbytes + 64,), dtype=torch.uint8, device=dev)
+    b = flat[48 : 48 + blocks.nbytes].view(100, 2, 128)
+    b.copy_(torch.from_numpy(blocks).to(dev))
+    a = torch.from_numpy(active).to(dev)
+    assert b.data_ptr() % 16 == 0 and b.data_ptr() != flat.data_ptr()
+    assert torch.equal(sha2.sha512_blocks(b, a), sha2.sha512_blocks_plain(b, a))
+    off = flat[8 : 8 + blocks.nbytes].view(100, 2, 128)
+    off.copy_(torch.from_numpy(blocks).to(dev))
+    assert off.data_ptr() % 16 == 8
+    assert torch.equal(sha2.sha512_blocks(off, a), sha2.sha512_blocks_plain(off, a))
+    digest = torch.empty((100 * 64 + 8,), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):
+        sha2.launch_k2(off, a, digest[: 100 * 64].view(100, 64))
+    with pytest.raises(ValueError):
+        sha2.launch_k2(b, a, digest[8:].view(100, 64))
+
+
 def test_k3_k4_match_plain(dev, case):
     from cometbft_tpu_torch.ops import comb, sha2
 
@@ -728,10 +773,11 @@ def test_k15_block_edges_and_small_order_match_plain_and_k13(dev, mode, n):
     assert all(torch.equal(g, p) for g, p in zip(got, plain[1:]))
 
 
-@pytest.mark.parametrize("n", [1, 33, 8200])
+@pytest.mark.parametrize("n", [1, 33, 8200, 313 * 32 + 1, 10_000])
 def test_k14_matches_plain_and_host(dev, n):
-    """K14 at 1 row, a tile and a row, and 257 tile partials (the
-    finishing stage's fold), with identity rows and a point beside its
+    """K14 at 1 row, a tile and a row, 257 tile partials (the finishing
+    stage's fold), 314 (a fold beyond the 10,000 rows' 313) and the main
+    path's 10,000 rows, with identity rows and a point beside its
     negation, at random Z."""
     from cometbft_tpu_torch.crypto import bls12381 as H
     from cometbft_tpu_torch.ops import bls381 as B

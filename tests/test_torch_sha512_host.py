@@ -1,0 +1,97 @@
+"""K2's row body (csrc/sha2.cuh: sha512_row, its loads, rounds and digest
+store) built for the host: g++ compiles the header (the card's 16-byte
+loads and stores are byte loops there; the rounds and the byte order are
+the same code), and the harness hashes rows of 1-3 active blocks with
+random bytes past each row's end, and rows at active = 0.  Digests are
+held against hashlib and the port's plain K2
+(ops/sha2.sha512_blocks_plain).  Copies of the header with a planted
+fault (a rotation count, the byte order of a load or of the digest) must
+fail.  Skips only where no host C++ compiler exists.
+"""
+
+import ctypes
+import os
+import pathlib
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from cometbft_tpu_torch.ops import sha2
+import torch_sha_corpus as SC
+
+torch.set_num_threads(1)
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "cometbft_tpu_torch" / "csrc"
+
+HARNESS = r"""
+#include "sha2.cuh"
+
+extern "C" void h_sha512_rows(const uint8_t* blocks, const int32_t* active, uint8_t* digest, int V, int nblocks) {
+  for (int v = 0; v < V; v++) sha512_row(digest + 64 * v, blocks + (size_t)v * nblocks * 128, nblocks, active[v]);
+}
+"""
+
+# name -> (the text of the shipped header, the fault put in its place)
+MUTATIONS = {
+    "rotation": ("rotr64(e, 14) ^ rotr64(e, 18)", "rotr64(e, 14) ^ rotr64(e, 19)"),
+    "load_byte_order": ("((uint64_t)bswap32(c[2 * i]) << 32) | bswap32(c[2 * i + 1])",
+                        "((uint64_t)bswap32(c[2 * i + 1]) << 32) | bswap32(c[2 * i])"),
+    "digest_byte_order": ("o[2 * i] = bswap32((uint32_t)(st[i] >> 32));", "o[2 * i] = (uint32_t)(st[i] >> 32);"),
+    "prefetch": ("if (b + 1 < n) sha512_load(next, blocks + (size_t)(b + 1) * 128);",
+                 "if (b + 1 < n) sha512_load(next, blocks + (size_t)b * 128);"),
+}
+
+
+def _build(csrc: pathlib.Path, tmp: pathlib.Path) -> ctypes.CDLL:
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build csrc/sha2.cuh with")
+    src, out = tmp / "harness.cpp", tmp / "libsha512_rows.so"
+    src.write_text(HARNESS)
+    subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-I", str(csrc), "-o", str(out), str(src)],
+                   check=True, capture_output=True, text=True)
+    h = ctypes.CDLL(str(out))
+    h.h_sha512_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    return h
+
+
+@pytest.fixture(scope="module")
+def shipped(tmp_path_factory):
+    return _build(CSRC, tmp_path_factory.mktemp("sha512_rows"))
+
+
+def _digests(lib, blocks, active) -> np.ndarray:
+    out = np.full((blocks.shape[0], 64), 0xAA, np.uint8)
+    lib.h_sha512_rows(blocks.ctypes.data_as(ctypes.c_void_p), active.ctypes.data_as(ctypes.c_void_p),
+                      out.ctypes.data_as(ctypes.c_void_p), blocks.shape[0], blocks.shape[1])
+    return out
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3])
+def test_row_body_matches_hashlib_and_plain(shipped, nb):
+    """Every row's digest is hashlib's (the initial state at active = 0)
+    and the plain version's, whatever the bytes past the row's end."""
+    msgs, blocks, active = SC.stale_rows(np.random.default_rng(nb), 40, nb)
+    got = _digests(shipped, blocks, active)
+    assert [bytes(r) for r in got] == SC.digests(msgs, active)
+    plain = sha2.sha512_blocks_plain(torch.from_numpy(blocks), torch.from_numpy(active)).numpy()
+    assert np.array_equal(got, plain)
+
+
+@pytest.mark.parametrize("mutation", sorted(MUTATIONS))
+def test_planted_faults_fail(tmp_path, mutation):
+    """A copy of the header with one fault gives another digest for some
+    row of 1-3 active blocks."""
+    old, new = MUTATIONS[mutation]
+    csrc = tmp_path / "csrc"
+    shutil.copytree(CSRC, csrc)
+    path = csrc / "sha2.cuh"
+    text = path.read_text()
+    assert text.count(old) == 1, mutation
+    path.write_text(text.replace(old, new))
+    lib = _build(csrc, tmp_path)
+    msgs, blocks, active = SC.stale_rows(np.random.default_rng(5), 40, 3)
+    assert [bytes(r) for r in _digests(lib, blocks, active)] != SC.digests(msgs, active), mutation
