@@ -172,6 +172,10 @@ RUN_9M = {"K5 16,384 lanes": 3.2597, "K5 256 lanes": 2.9878, "K3 10,000 keys": 9
 # K14's redesign; PERF.md), printed beside this run's in the logs; never in
 # the kernels line
 RUN_13Q = {"K2 10,000 rows": 0.0370, "K14 10,000 rows": 0.2541, "K14 finishing stage": 0.1643}
+# Run 15a (scripts/torch_short_kernels_ab.py on an NVIDIA H100 80GB HBM3 at 700 W, before K1's and K7's
+# redesign; PERF.md): times through a CUDA graph, printed in phases 4 and 11 beside this run's; never in
+# the kernels line
+RUN_15A = {"K1 10,000 rows": 0.0105, "K7 16,384 x 2": 0.0079, "K7 10,000 x 1": 0.0046}
 # The one-thread K4's time at 10,000 lanes (this script on an NVIDIA H100 80GB HBM3 at 700 W, before
 # the redesign; PERF.md's run J), printed in phase 4's log beside this run's; never in the kernels line
 K4_MS_ONE_THREAD = 0.7288
@@ -667,8 +671,10 @@ def secp_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_a
     act10 = int(ka.sum())
     bounds["keccak256_blocks"] = ("operations", act10 * OPS_PER_KECCAK_BLOCK / INT32_OPS_PER_S,
                                   (kb.numel() + ka.numel() * 4 + kb.shape[0] * 32) / HBM_BYTES_PER_S)
+    k10_graph_ms = graph_ms(lambda: K.launch_k10(kb, ka, out10), it)
     log(f"[14] K10 == plain on the long batch's {int((ka > 0).sum())} Keccak rows and on {N_SECP} rows "
-        f"of 0-300 B with stale bytes; == host Keccak on 64 of them")
+        f"of 0-300 B with stale bytes; == host Keccak on 64 of them; {times['keccak256_blocks'][0]:.4f} ms by "
+        f"events at {kb.shape[0]} x {kb.shape[1]} blocks, {k10_graph_ms:.4f} through a CUDA graph")
 
     from cometbft_tpu_torch import _build
 
@@ -810,7 +816,7 @@ def secp_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_a
                       [rows_of[name]] if name in rows_of else [])
     record = {"secp_p50_ms": p50s, "secp_phases_p50_ms": phases, "secp_rows": N_SECP, "secp_kernels": kshape,
               "secp_decode_cache": dict(sv.CACHE_STATS),
-              "secp_planted": len(planted), "secp_path_launches": path_counts}
+              "secp_planted": len(planted), "secp_path_launches": path_counts, "k10_graph_ms": k10_graph_ms}
     return results, times, bounds, meta, record
 
 
@@ -1843,8 +1849,8 @@ def main() -> int:
     # K1 and K2 on a mixed-mlen payload with non-live rows and stale bytes
     mixed = rng.integers(0, 256, size=(V_MAIN, 68 + MAXM), dtype=np.uint8)
     mlen = rng.integers(0, MAXM + 1, size=V_MAIN)
-    mlen[:8] = [0, 31, 32, 47, 48, 110, 128, 64]
-    mixed[:, 64], mixed[:, 65], mixed[:, 66] = mlen & 0xFF, mlen >> 8, 0
+    mlen[:10] = [0, 31, 32, 47, 48, 110, 128, 64, MAXM + 1, (1 << 24) - 1]  # the last two past maxm
+    mixed[:, 64], mixed[:, 65], mixed[:, 66] = mlen & 0xFF, (mlen >> 8) & 0xFF, mlen >> 16
     mixed[:, 67] = (rng.random(V_MAIN) > 0.05).astype(np.uint8)
     mixed_t = torch.from_numpy(mixed).to(dev)
     _, _, blk_k, act_k, _ = sha2.parse_verify_payload(mixed_t, entry.pubs)
@@ -1857,7 +1863,7 @@ def main() -> int:
     torch.cuda.synchronize()
     require(torch.equal(dig_k, dig_p), "K2 != plain")
     results["sha512_blocks"] = max_abs_err(dig_k, dig_p)
-    log(f"[3] K1, K2 == plain at V={V_MAIN}, maxm={MAXM} (active blocks "
+    log(f"[3] K1, K2 == plain at V={V_MAIN}, maxm={MAXM}, two rows' mlen past maxm (active blocks "
         f"{int(act_k.sum())}, non-live {int((mixed[:, 67] == 0).sum())})")
 
     # K3 on 1,024 keys with an off-curve and a non-canonical-y key
@@ -2080,11 +2086,22 @@ def main() -> int:
         f"{comb.BUILD_THREADS_PER_KEY} threads a key, {k3_threads} a block, {k3_shape['blocks_per_sm']} blocks an "
         f"SM; {k3p['registers']} registers, {k3p.get('stack_bytes', 0)} bytes of stack, {k3p['spill_bytes']} spilled")
 
-    # K2's ptxas figures (a spill fails the run) and its time beside run 13q's
+    # K1's and K2's ptxas figures (a spill fails the run) and their times
+    # through a CUDA graph beside runs 15a's and 13q's
     sha_log = _build.BUILD_LOG["sha2"]
-    k2p = ptxas_kernels(sha_log["ptxas"], lambda line: "k2" if "k2_kernel" in line else None)["kernels"]["k2"]
-    require(k2p.get("spill_bytes", 1) == 0, f"K2 spills: {k2p}")
+    sha_ptx = ptxas_kernels(sha_log["ptxas"], lambda line: "k2" if "k2_kernel" in line else
+                            "k1" if "k1_kernel" in line else None)
+    k1p, k2p = sha_ptx["kernels"]["k1"], sha_ptx["kernels"]["k2"]
+    require(sha_ptx["any_spill"] == 0 and k1p.get("spill_bytes", 1) == 0 and k2p.get("spill_bytes", 1) == 0,
+            f"sha2.cu spills: K1 {k1p}, K2 {k2p}")
+    graphed = {"parse_verify_payload": graph_ms(lambda: sha2.launch_k1(good_payload, entry.pubs, blocks, active),
+                                                TIMING["parse_verify_payload"][0])}
     k2_graph_ms = graph_ms(lambda: sha2.launch_k2(blocks, active, dig), TIMING["sha512_blocks"][0])
+    graphed["sha512_blocks"] = k2_graph_ms
+    log(f"[4] K1 {t['parse_verify_payload'][0]:.4f} ms by events at {V_MAIN} rows x {nb} blocks, "
+        f"{graphed['parse_verify_payload']:.4f} ms with its launches in a CUDA graph (run 15a, a thread a byte: "
+        f"{RUN_15A['K1 10,000 rows']} ms); a thread a 16-byte chunk; {k1p['registers']} registers, "
+        f"{k1p.get('stack_bytes', 0)} bytes of stack, {k1p['spill_bytes']} spilled")
     log(f"[4] K2 {t['sha512_blocks'][0]:.4f} ms at {V_MAIN} rows x {nb} blocks ({sum_active} active; run 13q: "
         f"{RUN_13Q['K2 10,000 rows']} ms), {k2_graph_ms:.4f} ms with its launches in a CUDA graph (no host time "
         f"between them); {k2p['registers']} registers, {k2p.get('stack_bytes', 0)} bytes of stack, "
@@ -2502,6 +2519,8 @@ def main() -> int:
     for blocks_, active_ in (stage_v[:2], stage_p[:2]):
         n_ = blocks_.shape[0]
         flat_ = Mk.all_levels(blocks_, active_)
+        require(torch.equal(flat_[:n_], sha2.sha256_blocks_plain(blocks_, active_)),
+                f"K7 != plain on the {n_}-leaf tree's leaves")
         want_ = flat_.clone()
         want_[n_:] = 0
         Mk.merkle_tree_plain(want_, n_)
@@ -2545,7 +2564,8 @@ def main() -> int:
     torch.cuda.synchronize()
     require(torch.equal(g9p, q9p) and torch.equal(g9p, lib9), "K9 != plain / index_select")
     results["merkle_gather"] = max(max_abs_err(g9, q9), max_abs_err(g9p, q9p))
-    log(f"[11] K7 == plain on {N_LEAVES} rows of 1-3 active blocks (stale bytes past each row); "
+    log(f"[11] K7 == plain on {N_LEAVES} rows of 1-3 active blocks (stale bytes past each row) and on both "
+        f"trees' leaves; "
         f"K8 (one launch a tree) == plain on every level of the {V_MAIN}- and {N_LEAVES}-leaf trees "
         f"(odd levels of the first: {odd}) and of {k8_sizes} leaves over rows poisoned with 0xAA, "
         f"each launched twice back to back; K9 == plain with {n_missing} coordinates of -1, and "
@@ -2580,6 +2600,28 @@ def main() -> int:
     # the 10,000-leaf tree of ValidatorSet.hash
     flat_v = Mk.all_levels(*stage_v[:2])
     k8_valset_ms = cuda_ms(lambda: Mk.merkle_tree(flat_v, V_MAIN), *TIMING["merkle_tree"][:2])
+    # K7 and K9 through a CUDA graph (each takes less on the card than its
+    # launch on the host), K7 also at the set tree's 10,000 one-block
+    # leaves; K7-K9's ptxas figures (a spill fails the run)
+    timed7v = torch.empty((V_MAIN, 32), dtype=torch.uint8, device=dev)
+    graphed["sha256_blocks"] = graph_ms(lambda: sha2.launch_k7(blocks_p, active_p, timed7),
+                                        TIMING["sha256_blocks"][0])
+    k7_valset_graph_ms = graph_ms(lambda: sha2.launch_k7(stage_v[0], stage_v[1], timed7v), TIMING["sha256_blocks"][0])
+    require(torch.equal(timed7v, flat_v[:V_MAIN]), "the timed set-tree leaves != the set tree's")
+    graphed["merkle_gather"] = graph_ms(lambda: Mk.launch_k9(flat_p, pc_flat, out9), TIMING["merkle_gather"][0])
+    mk_log = _build.BUILD_LOG["merkle"]
+    mk_ptx = ptxas_kernels(mk_log["ptxas"], lambda line: next(
+        (k for k in ("k7_kernel", "k8_kernel", "k9_kernel") if k in line), None))
+    require(mk_ptx["any_spill"] == 0 and all(v.get("spill_bytes", 1) == 0 for v in mk_ptx["kernels"].values()),
+            f"merkle.cu spills: {mk_ptx}")
+    k7p = mk_ptx["kernels"]["k7_kernel"]
+    log(f"[11] K7 {t['sha256_blocks'][0]:.4f} ms by events at {N_LEAVES} x {blocks_p.shape[1]} blocks "
+        f"({sum_active7} active), {graphed['sha256_blocks']:.4f} ms through a CUDA graph (run 15a: "
+        f"{RUN_15A['K7 16,384 x 2']}); {k7_valset_graph_ms:.4f} ms at the set tree's {V_MAIN} x "
+        f"{stage_v[0].shape[1]} (run 15a: {RUN_15A['K7 10,000 x 1']}); {k7p['registers']} registers, "
+        f"{k7p.get('stack_bytes', 0)} bytes of stack, {k7p['spill_bytes']} spilled; K8 {mk_ptx['kernels']['k8_kernel']}, "
+        f"K9 {mk_ptx['kernels']['k9_kernel']}; K9 {t['merkle_gather'][0]:.4f} ms by events, "
+        f"{graphed['merkle_gather']:.4f} through a graph")
 
     # ---------------------------------------------------- 12-15. the secp lane
     secp_results, secp_t, secp_bound, secp_meta, secp_record = secp_phases(
@@ -2675,6 +2717,7 @@ def main() -> int:
         bound[name] = (by, secs)
         other[name] = other_secs
     library = {"assemble_churn": lib6_ms, "merkle_gather": lib9_ms}
+    graphed["keccak256_blocks"] = secp_record["k10_graph_ms"]
     total_launches = {k: sum(p[k] for p in path_launches.values()) for k in read_counts()}
     log(f"[21] launches per path (each read just after the path): {json.dumps(path_launches)}")
     kernels = []
@@ -2689,6 +2732,8 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": secs * 1e3, "bound_by": by,
             "library_ms": library.get(name),
         }
+        if name in graphed:  # a kernel shorter than its launch's host cost: also its time through a CUDA graph
+            rec["graph_ms"] = graphed[name]
         if name == "verify_batch":  # launch shapes, ptxas figures, the light client's 256 lanes
             g_big, g_256 = E.threads_per_lane(lanes), E.threads_per_lane(256)
             rec.update(k5_shapes[g_big], lanes=lanes, shape_256=k5_shapes[g_256], ms_256=t["verify_batch_256"][0],
@@ -2704,6 +2749,10 @@ def main() -> int:
                        bound_ms_bucket=bound["build_a_tables_128"][1] * 1e3,
                        field_muls=FIELD_MULS_PER_TABLE,
                        field_muls_design=table_muls_design(comb.BUILD_THREADS_PER_KEY))
+        if name == "sha256_blocks":  # the set tree's one-block leaves beside the proof tree's
+            rec.update(k7p, graph_ms_valset=k7_valset_graph_ms, rows_valset=V_MAIN)
+        if name == "parse_verify_payload":
+            rec.update(k1p)
         if name == "merkle_tree":  # ms, plain_ms and bound_ms are for one whole tree, one launch
             rec.update(launches_per_tree=1, levels=len(sizes_p), leaves=N_LEAVES, threads_per_block=T8,
                        ms_valset=k8_valset_ms, leaves_valset=V_MAIN,

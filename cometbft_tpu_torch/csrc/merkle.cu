@@ -5,7 +5,13 @@
 // 32-bit words, with the message schedule in a 16-entry ring (the TPU
 // version shifted a 16-word window every round inside a fori_loop).
 // Bound on this card: operations — 2,296 word operations per block
-// against 64 bytes read.
+// against 64 bytes read.  What the design does about it (sha256.cuh
+// sha256_row): at 16,384 rows a thread a row is about one warp a
+// scheduler, so a row's chain sets the time; each block is read as four
+// 16-byte loads issued before the block ahead of it compresses, h + K +
+// W is summed off the chain from e to e, and the digest goes out as two
+// 16-byte stores.
+// blocks and digest must be 16-byte aligned (launch_k7 checks).
 //
 // K8 k8_merkle_tree replaces cometbft_tpu/ops/merkle.py:47 hash_level
 // (with _inner_blocks, :38) over every level of one tree, as :67
@@ -31,9 +37,11 @@
 
 #include "merkle_tree.cuh"
 
-__global__ void k7_kernel(const uint8_t* __restrict__ blocks,
-                          const int32_t* __restrict__ active,
-                          uint8_t* __restrict__ digest, int n, int nblocks) {
+#define K7_THREADS 128  // rows of a K7 block
+
+__global__ void __launch_bounds__(K7_THREADS)
+    k7_kernel(const uint8_t* __restrict__ blocks, const int32_t* __restrict__ active,
+              uint8_t* __restrict__ digest, int n, int nblocks) {
   int v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= n) return;
   sha256_row(digest + (size_t)v * 32, blocks + (size_t)v * nblocks * 64,
@@ -75,8 +83,7 @@ extern "C" int k7_sha256_blocks(const void* blocks, const void* active,
                                 void* digest, int n, int nblocks,
                                 void* stream) {
   if (n > 0) {
-    int threads = 128;
-    k7_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+    k7_kernel<<<(n + K7_THREADS - 1) / K7_THREADS, K7_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)blocks, (const int32_t*)active, (uint8_t*)digest, n,
         nblocks);
   }

@@ -4,10 +4,18 @@
 // parse_verify_payload (with ram_blocks_from_parts, :311): it decodes the
 // tight payload rows R(32) | s(32) | mlen(3B LE) | live(1B) | msg(maxm)
 // and writes each row's SHA-512-padded R || A || M blocks plus its
-// active block count (0 for rows that are not live).  One thread per
-// (row, byte column).  Bound on this card: bytes — it reads the payload
-// and pubkeys once and writes V * nblocks * 128 bytes, with a few integer
-// operations per byte.
+// active block count (0 for rows that are not live).  Bound on this
+// card: bytes — it reads the payload and pubkeys once and writes
+// V * nblocks * 128 bytes.  One thread per 16-byte chunk of a row's
+// blocks (sha2.cuh k1_thread): a 2-D launch, x the chunks of a row and
+// y the rows, so no thread divides; each decodes its row's mlen once,
+// builds its chunk in four 32-bit registers and writes it with one
+// 16-byte store (blocks must be 16-byte aligned: launch_k1 checks).  The
+// source bytes are read as 4-byte words, which needs a width that is a
+// multiple of 4 and 4-byte aligned payload and pubkeys (launch_k1
+// refuses others; every caller's width is 68 + a multiple of 32): with a
+// byte a load K1 took ~10% longer at 10,000 rows in turns (PERF.md,
+// PR 15).
 //
 // K2 k2_sha512_blocks replaces cometbft_tpu/ops/sha2.py:189
 // sha512_blocks: one thread per row runs that row's active compressions
@@ -29,22 +37,18 @@
 
 #include "sha2.cuh"
 
+#define K1_THREADS 256  // threads of a K1 block: 16 rows of 16 chunks at maxm 128
 #define K2_THREADS 64  // rows of a K2 block: 10,000 rows make 157 blocks
 
-__global__ void k1_kernel(const uint8_t* __restrict__ payload,
-                          const uint8_t* __restrict__ pubs,
-                          uint8_t* __restrict__ blocks,
-                          int32_t* __restrict__ active, int V, int width,
-                          int nblocks) {
-  int row_bytes = nblocks * 128;
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)V * row_bytes) return;
-  int v = (int)(idx / row_bytes);
-  int col = (int)(idx % row_bytes);
-  const uint8_t* row = payload + (size_t)v * width;
-  int nbr;
-  blocks[idx] = k1_block_byte(row, pubs + (size_t)v * 32, width - 68, col, &nbr);
-  if (col == 0) active[v] = row[67] == 1 ? nbr : 0;
+__global__ void __launch_bounds__(K1_THREADS)
+    k1_kernel(const uint8_t* __restrict__ payload, const uint8_t* __restrict__ pubs,
+              uint8_t* __restrict__ blocks, int32_t* __restrict__ active, int V, int width,
+              int nblocks) {
+  const int c = blockIdx.y * blockDim.x + threadIdx.x;
+  const int v = blockIdx.x * blockDim.y + threadIdx.y;
+  if (v >= V || c >= nblocks * 8) return;
+  k1_thread(blocks + (size_t)v * nblocks * 128, active + v, payload + (size_t)v * width,
+            pubs + (size_t)v * 32, width - 68, c);
 }
 
 __global__ void __launch_bounds__(K2_THREADS)
@@ -59,11 +63,14 @@ __global__ void __launch_bounds__(K2_THREADS)
 extern "C" int k1_parse_verify_payload(const void* payload, const void* pubs,
                                        void* blocks, void* active, int V,
                                        int width, int nblocks, void* stream) {
-  long long n = (long long)V * nblocks * 128;
-  if (n > 0) {
-    int threads = 256;
-    unsigned grid = (unsigned)((n + threads - 1) / threads);
-    k1_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+  const int chunks = nblocks * 8;  // 16-byte chunks a row
+  if (V > 0 && chunks > 0) {
+    const int cx = chunks < 32 ? chunks : 32;
+    const dim3 block(cx, K1_THREADS / cx);
+    const unsigned gy = (unsigned)((chunks + cx - 1) / cx);
+    if (gy > 65535u) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)((V + block.y - 1) / block.y), gy);
+    k1_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)payload, (const uint8_t*)pubs, (uint8_t*)blocks,
         (int32_t*)active, V, width, nblocks);
   }

@@ -4,33 +4,88 @@
 
 #include "common.cuh"
 
-// One byte of the SHA-512-padded R || A || M blocks of one row
-// (cometbft_tpu ops/sha2.py ram_blocks_from_parts, column `col` of a
+// x with its bytes reversed (one byte permute on the card)
+DEV uint32_t bswap32(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return __byte_perm(x, 0, 0x0123);
+#else
+  return (x >> 24) | ((x >> 8) & 0xff00u) | ((x << 8) & 0xff0000u) | (x << 24);
+#endif
+}
+
+// K1's body: the 16 bytes [16c, 16c + 16) of one row's SHA-512-padded
+// R || A || M blocks (cometbft_tpu ops/sha2.py ram_blocks_from_parts, a
 // row of width nblocks * 128):
 //   bytes [0, 32) R, [32, 64) A (the cached pubkey), [64, 64 + maxm) the
-//   message; every byte at or past total = mlen + 64 is zeroed (slab
-//   reuse relies on it), 0x80 goes at `total`, and the 128-bit
-//   big-endian bit length fills the last 16 bytes of the row's own final
-//   block (only the low 32 bits can be nonzero: mlen < 2^24).
-DEV uint8_t k1_block_byte(const uint8_t* row, const uint8_t* pub, int maxm,
-                          int col, int* nbr_out) {
-  int mlen = (int)row[64] | ((int)row[65] << 8) | ((int)row[66] << 16);
-  int total = mlen + 64;
-  uint32_t b = 0;
+//   message (payload bytes from 68 on); every byte at or past total =
+//   mlen + 64 is zeroed (slab reuse relies on it), 0x80 goes at `total`,
+//   and the 128-bit big-endian bit length fills the last 16 bytes of the
+//   row's own final block (only its low 32 bits can be nonzero: mlen <
+//   2^24).
+// A 16-byte chunk lies wholly in R, in A or in the message (32 and 64
+// are multiples of 16), and the row's final word is the last word of a
+// chunk (nbr * 128 - 4 is 12 mod 16).  Rows whose mlen exceeds maxm take
+// zeros past the message and read and write nothing past their own row.
+
+// The row's live bytes and its own block count, decoded once a thread.
+DEV void k1_decode(const uint8_t* row, int* total, int* nbr) {
+  const int mlen = (int)LDG(row + 64) | ((int)LDG(row + 65) << 8) | ((int)LDG(row + 66) << 16);
+  *total = mlen + 64;
+  *nbr = (*total + 17 + 127) / 128;
+}
+
+// The n bytes at p (none when n <= 0, all four when n >= 4) as a
+// little-endian word, the others 0.  p is 4-byte aligned and its four
+// bytes lie in the row: the payload, the pubkeys and the width are
+// multiples of 4 (launch_k1 checks), so the message, at row offset 68,
+// ends on a word.  On the card one 4-byte load.
+DEV uint32_t k1_word(const uint8_t* p, int n) {
+  if (n <= 0) return 0;
+#ifdef __CUDA_ARCH__
+  const uint32_t w = __ldg(reinterpret_cast<const uint32_t*>(p));
+#else
+  const uint32_t w = (uint32_t)p[0] | ((uint32_t)p[1] << 8) | ((uint32_t)p[2] << 16) | ((uint32_t)p[3] << 24);
+#endif
+  return n >= 4 ? w : w & ((1u << (8 * n)) - 1u);
+}
+
+// Chunk c of the row as four little-endian words o[0..3].
+DEV void k1_chunk(uint32_t o[4], const uint8_t* row, const uint8_t* pub, int maxm, int total, int nbr,
+                  int c) {
+  const int col = 16 * c;
+  const uint8_t* src;
+  int take = 16;  // bytes of the chunk taken from src
   if (col < 32) {
-    b = row[col];
+    src = row + col;
   } else if (col < 64) {
-    b = pub[col - 32];
-  } else if (col < 64 + maxm) {
-    b = row[68 + col - 64];
+    src = pub + (col - 32);
+  } else {
+    src = row + col + 4;
+    take = (total < 64 + maxm ? total : 64 + maxm) - col;
   }
-  if (col >= total) b = 0;
-  if (col == total) b |= 0x80u;
-  int nbr = (total + 17 + 127) / 128;
-  int shift = (nbr * 128 - 1 - col) * 8;
-  if (shift >= 0 && shift < 32) b |= ((uint32_t)(total * 8) >> shift) & 0xffu;
-  *nbr_out = nbr;
-  return (uint8_t)b;
+  UNROLL
+  for (int j = 0; j < 4; j++) o[j] = k1_word(src + 4 * j, take - 4 * j);
+  const int t = total - col;
+  if (t >= 0 && t < 16) o[t >> 2] |= 0x80u << (8 * (t & 3));
+  if (col == nbr * 128 - 16) o[3] |= bswap32((uint32_t)total * 8);
+}
+
+// One thread of K1: chunk c of row v, written to out_row (the row's
+// nblocks * 128 block bytes; on the card one 16-byte store, out_row
+// 16-byte aligned), and the row's active block count (0 for a row that
+// is not live) by the thread of chunk 0.
+DEV void k1_thread(uint8_t* out_row, int32_t* active, const uint8_t* row, const uint8_t* pub, int maxm,
+                   int c) {
+  int total, nbr;
+  k1_decode(row, &total, &nbr);
+  uint32_t o[4];
+  k1_chunk(o, row, pub, maxm, total, nbr, c);
+#ifdef __CUDA_ARCH__
+  reinterpret_cast<uint4*>(out_row)[c] = make_uint4(o[0], o[1], o[2], o[3]);
+#else
+  for (int i = 0; i < 16; i++) out_row[16 * c + i] = (uint8_t)(o[i / 4] >> (8 * (i % 4)));
+#endif
+  if (c == 0) *active = LDG(row + 67) == 1 ? nbr : 0;
 }
 
 DCONST uint64_t SHA512_K[80] = {
@@ -63,15 +118,6 @@ DCONST uint64_t SHA512_K[80] = {
     0x5fcb6fab3ad6faecull, 0x6c44198c4a475817ull};
 
 DEV uint64_t rotr64(uint64_t x, int n) { return (x >> n) | (x << (64 - n)); }
-
-// x with its bytes reversed (one byte permute on the card)
-DEV uint32_t bswap32(uint32_t x) {
-#ifdef __CUDA_ARCH__
-  return __byte_perm(x, 0, 0x0123);
-#else
-  return (x >> 24) | ((x >> 8) & 0xff00u) | ((x << 8) & 0xff0000u) | (x << 24);
-#endif
-}
 
 // The 128 bytes at p as 32 little-endian words: on the card eight 16-byte
 // loads (p 16-byte aligned), on the host byte by byte

@@ -1,5 +1,6 @@
 // SHA-256 for K7 (batched rows) and K8 (RFC-6962 inner nodes,
-// merkle_tree.cuh), shared by the kernels in merkle.cu.
+// merkle_tree.cuh), shared by the kernels in merkle.cu; K12 (secp.cu)
+// inlines sha256_compress and sha256_store too.
 #pragma once
 
 #include "common.cuh"
@@ -92,23 +93,105 @@ DEV void sha256_store(uint8_t out[32], const uint32_t st[8]) {
   }
 }
 
+// K7's row body, with a compression of its own: K8 and K12 inline
+// sha256_compress and sha256_store above, and a change to either moves
+// how ptxas compiles those kernels.
+
+// The 64 bytes at p as 16 little-endian words: on the card four 16-byte
+// loads (p 16-byte aligned), on the host byte by byte.
+DEV void sha256_load(uint32_t c[16], const uint8_t* p) {
+#ifdef __CUDA_ARCH__
+  UNROLL
+  for (int q = 0; q < 4; q++) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + q);
+    c[4 * q] = v.x;
+    c[4 * q + 1] = v.y;
+    c[4 * q + 2] = v.z;
+    c[4 * q + 3] = v.w;
+  }
+#else
+  for (int i = 0; i < 16; i++)
+    c[i] = (uint32_t)p[4 * i] | ((uint32_t)p[4 * i + 1] << 8) | ((uint32_t)p[4 * i + 2] << 16) |
+           ((uint32_t)p[4 * i + 3] << 24);
+#endif
+}
+
+// One compression of a block given as sha256_load's words (message word
+// i is bytes 4i..4i+3 big-endian, c[i] byte-reversed).  The same
+// operations as sha256_compress, in another order: h + K_t + W_t (and d
+// plus it) wait on no word of this round, so from e to the next e run
+// only ch and S1 (in parallel) and two adds.
+DEV void sha256_compress_row(uint32_t st[8], const uint32_t c[16]) {
+  uint32_t w[16];
+  UNROLL
+  for (int i = 0; i < 16; i++) w[i] = bswap32(c[i]);
+  uint32_t a = st[0], b = st[1], cc = st[2], d = st[3];
+  uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
+  UNROLL
+  for (int t = 0; t < 64; t++) {
+    uint32_t wt;
+    if (t < 16) {
+      wt = w[t];
+    } else {
+      const uint32_t w15 = w[(t + 1) & 15], w2 = w[(t + 14) & 15];
+      const uint32_t s0 = rotr32(w15, 7) ^ rotr32(w15, 18) ^ (w15 >> 3);
+      const uint32_t s1 = rotr32(w2, 17) ^ rotr32(w2, 19) ^ (w2 >> 10);
+      wt = w[t & 15] + s0 + w[(t + 9) & 15] + s1;
+      w[t & 15] = wt;
+    }
+    const uint32_t hk = h + SHA256_K[t] + wt, dhk = d + hk;
+    const uint32_t ch = (e & f) ^ (~e & g);
+    const uint32_t S1 = rotr32(e, 6) ^ rotr32(e, 11) ^ rotr32(e, 25);
+    const uint32_t S0 = rotr32(a, 2) ^ rotr32(a, 13) ^ rotr32(a, 22);
+    const uint32_t mj = (a & b) ^ (a & cc) ^ (b & cc);
+    const uint32_t t1 = (hk + ch) + S1;
+    h = g;
+    g = f;
+    f = e;
+    e = (dhk + ch) + S1;
+    d = cc;
+    cc = b;
+    b = a;
+    a = t1 + (S0 + mj);
+  }
+  st[0] += a;
+  st[1] += b;
+  st[2] += cc;
+  st[3] += d;
+  st[4] += e;
+  st[5] += f;
+  st[6] += g;
+  st[7] += h;
+}
+
 // Digest of one row: `active` compressions of its nblocks 64-byte
 // blocks (the state stays frozen past the row's own last block, as in
-// the reference's per-row active count), written big-endian to out[32].
-// `blocks` and `out` are 4-byte aligned.
-DEV void sha256_row(uint8_t out[32], const uint8_t* blocks, int nblocks,
-                    int active) {
+// the reference's per-row active count; bytes past it are never read),
+// written big-endian to out[32]: on the card two 16-byte stores.  Each
+// block's words are loaded before the block ahead of it compresses.
+// `blocks` and `out` are 16-byte aligned.
+DEV void sha256_row(uint8_t out[32], const uint8_t* blocks, int nblocks, int active) {
   uint32_t st[8];
   sha256_init(st);
+  const int n = active < nblocks ? active : nblocks;
+  uint32_t c[16], next[16];
+  if (n > 0) sha256_load(next, blocks);
   NOUNROLL
-  for (int b = 0; b < nblocks && b < active; b++) {
-    const uint32_t* src = (const uint32_t*)(blocks + (size_t)b * 64);
-    uint32_t w[16];
+  for (int b = 0; b < n; b++) {
     UNROLL
-    for (int i = 0; i < 16; i++) w[i] = bswap32(LDG(src + i));
-    sha256_compress(st, w);
+    for (int i = 0; i < 16; i++) c[i] = next[i];
+    if (b + 1 < n) sha256_load(next, blocks + (size_t)(b + 1) * 64);
+    sha256_compress_row(st, c);
   }
-  sha256_store(out, st);
+  uint32_t o[8];
+  UNROLL
+  for (int i = 0; i < 8; i++) o[i] = bswap32(st[i]);
+#ifdef __CUDA_ARCH__
+  reinterpret_cast<uint4*>(out)[0] = make_uint4(o[0], o[1], o[2], o[3]);
+  reinterpret_cast<uint4*>(out)[1] = make_uint4(o[4], o[5], o[6], o[7]);
+#else
+  for (int i = 0; i < 32; i++) out[i] = (uint8_t)(o[i / 4] >> (8 * (i % 4)));
+#endif
 }
 
 // The RFC-6962 inner node SHA256(0x01 || L || R) of two 32-byte nodes

@@ -174,7 +174,7 @@ def all_levels(blocks: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
         raise ValueError("a tree needs at least one leaf")
     flat = torch.empty((level_offsets(n)[-1] + 1, 32), dtype=torch.uint8, device=blocks.device)
     if blocks.device.type == "cuda":
-        sha2.launch_k7(blocks.contiguous(), active.to(torch.int32).contiguous(), flat)
+        sha2.launch_k7(sha2.aligned16(blocks), active.to(torch.int32).contiguous(), flat)
     else:
         flat[:n] = sha2.sha256_blocks(blocks, active)
     merkle_tree(flat, n)

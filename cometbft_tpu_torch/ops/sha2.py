@@ -61,6 +61,21 @@ def nblocks_for(maxm: int) -> int:
     return (64 + maxm + 17 + 127) // 128
 
 
+def aligned4(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and 4-byte aligned, for K1's word loads: a misaligned
+    view goes to a fresh allocation."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 4 else t
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and 16-byte aligned, for the kernels that load 16
+    bytes at a time (K2, K7): a misaligned view goes to a fresh
+    allocation."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def _check_payload(payload: torch.Tensor, pubs: torch.Tensor) -> None:
     if payload.dtype != torch.uint8 or payload.dim() != 2 or payload.shape[1] < 68:
         raise ValueError("payload must be (V, 68 + maxm) uint8")
@@ -139,7 +154,8 @@ def parse_verify_payload(payload: torch.Tensor, pubs: torch.Tensor):
     payload (V, 68 + maxm) uint8, pubs (V, 32) uint8 ->
     (r (V, 32), s (V, 32), blocks (V, nb, 128) uint8, active (V,) int32,
     live (V,) bool); r and s are views of the payload, active is 0 for
-    rows that are not live."""
+    rows that are not live.  On the card the width must be a multiple of
+    4 (K1 reads words; every caller's is 68 + a multiple of 32)."""
     _check_payload(payload, pubs)
     r, s = payload[:, :32], payload[:, 32:64]
     live = payload[:, 67] == 1
@@ -148,7 +164,7 @@ def parse_verify_payload(payload: torch.Tensor, pubs: torch.Tensor):
         return r, s, blocks, active, live
     if payload.device.type != "cuda":
         raise ValueError(f"unsupported device {payload.device}")
-    payload, pubs = payload.contiguous(), pubs.contiguous()
+    payload, pubs = aligned4(payload), aligned4(pubs)
     V, width = payload.shape
     nb = nblocks_for(width - 68)
     blocks = torch.empty((V, nb, 128), dtype=torch.uint8, device=payload.device)
@@ -158,8 +174,22 @@ def parse_verify_payload(payload: torch.Tensor, pubs: torch.Tensor):
 
 
 def launch_k1(payload, pubs, blocks, active) -> None:
-    """K1 into preallocated outputs on the current stream."""
+    """K1 into preallocated outputs on the current stream.
+
+    K1 writes each 16-byte chunk of the blocks with one 16-byte store and
+    reads the payload and pubkeys as 4-byte words, so ``blocks`` must be
+    16-byte aligned, ``payload`` and ``pubs`` 4-byte aligned and the
+    payload's width a multiple of 4; there is no slower route.  Every
+    caller's are: the blocks are a fresh allocation (parse_verify_payload,
+    and the sharded plane through it), and the payload is 68 + a multiple
+    of 32 bytes wide (models/comb_verifier._bucket_mlen), its row ranges
+    at multiples of that width."""
     V, width = payload.shape
+    if blocks.data_ptr() % 16:
+        raise ValueError("K1 stores 16 bytes at a time: blocks must be 16-byte aligned")
+    if width % 4 or payload.data_ptr() % 4 or pubs.data_ptr() % 4:
+        raise ValueError("K1 reads 4-byte words: the payload's width must be a multiple of 4, "
+                         "and payload and pubs 4-byte aligned")
     with torch.cuda.device(payload.device):
         code = _build.lib("sha2").k1_parse_verify_payload(
             payload.data_ptr(), pubs.data_ptr(), blocks.data_ptr(), active.data_ptr(),
@@ -226,9 +256,7 @@ def sha512_blocks(blocks: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
         return sha512_blocks_plain(blocks, active)
     if blocks.device.type != "cuda":
         raise ValueError(f"unsupported device {blocks.device}")
-    blocks = blocks.contiguous()
-    if blocks.data_ptr() % 16:  # K2 loads 16 bytes at a time: a misaligned view goes to a fresh allocation
-        blocks = blocks.clone()
+    blocks = aligned16(blocks)
     active = active.to(torch.int32).contiguous()
     digest = torch.empty((blocks.shape[0], 64), dtype=torch.uint8, device=blocks.device)
     launch_k2(blocks, active, digest)
@@ -352,18 +380,23 @@ def sha256_blocks(blocks: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     if blocks.device.type != "cuda":
         raise ValueError(f"unsupported device {blocks.device}")
     digest = torch.empty((blocks.shape[0], 32), dtype=torch.uint8, device=blocks.device)
-    blocks = blocks.contiguous()
-    if blocks.data_ptr() % 4:
-        blocks = blocks.clone()
-    launch_k7(blocks, active.to(torch.int32).contiguous(), digest)
+    launch_k7(aligned16(blocks), active.to(torch.int32).contiguous(), digest)
     return digest
 
 
 def launch_k7(blocks, active, digest) -> None:
     """K7 into a preallocated (N, 32) digest (which may be a row range of
-    a larger contiguous tensor) on the current stream."""
-    if blocks.data_ptr() % 4 or digest.data_ptr() % 4:
-        raise ValueError("K7 loads and stores 4-byte words: blocks and digest must be 4-byte aligned")
+    a larger contiguous tensor) on the current stream.
+
+    K7 reads each 64-byte block as four 16-byte loads and writes each
+    digest as two 16-byte stores, so ``blocks`` and ``digest`` must be
+    16-byte aligned; there is no slower route.  Every caller's are:
+    sha256_blocks's (it copies a misaligned view into a fresh
+    allocation), the leaves that ops/merkle.stage_leaves puts at offset 0
+    of a fresh tensor, and level 0 of the fresh node tensor of
+    ops/merkle.all_levels."""
+    if blocks.data_ptr() % 16 or digest.data_ptr() % 16:
+        raise ValueError("K7 loads and stores 16 bytes at a time: blocks and digest must be 16-byte aligned")
     with torch.cuda.device(blocks.device):
         code = _build.lib("merkle").k7_sha256_blocks(
             blocks.data_ptr(), active.data_ptr(), digest.data_ptr(),

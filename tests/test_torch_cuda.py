@@ -387,6 +387,117 @@ def test_k7_matches_plain_and_hashlib(dev):
     assert [bytes(r) for r in got.cpu().numpy()] == [hashlib.sha256(m).digest() for m in msgs]
 
 
+@pytest.mark.parametrize("n,nb", [(10_000, 1), (16_384, 3), (31, 4)])
+def test_k7_rows_match_plain_and_hashlib(dev, n, nb):
+    """K7 at the validator-set tree's 10,000 one-block leaves, 16,384 rows
+    of 1-3 active blocks and a ragged warp of 1-4, stale bytes past each
+    row's end and rows at active = 0 (the initial state), over a poisoned
+    digest."""
+    import torch_sha_corpus as SC
+
+    from cometbft_tpu_torch.ops import sha2
+
+    msgs, blocks, active = SC.stale_rows_sha256(np.random.default_rng(n + nb), n, nb)
+    b, a = torch.from_numpy(blocks).to(dev), torch.from_numpy(active).to(dev)
+    got = torch.full((n, 32), 0xAA, dtype=torch.uint8, device=dev)
+    sha2.launch_k7(b, a, got)
+    assert torch.equal(got, sha2.sha256_blocks_plain(b, a))
+    assert [bytes(r) for r in got.cpu().numpy()] == SC.digests_sha256(msgs, active)
+
+
+def test_k7_aligned_view_and_misaligned_refusal(dev):
+    """K7 on a 16-byte-aligned view at a nonzero offset of a larger buffer
+    equals the plain version; a view 4 bytes off passes through
+    sha256_blocks (copied to a fresh, aligned allocation), while launch_k7
+    itself refuses it, blocks or digest, with ValueError."""
+    import torch_sha_corpus as SC
+
+    from cometbft_tpu_torch.ops import sha2
+
+    _, blocks, active = SC.stale_rows_sha256(np.random.default_rng(17), 100, 2)
+    flat = torch.zeros((blocks.nbytes + 64,), dtype=torch.uint8, device=dev)
+    b = flat[48 : 48 + blocks.nbytes].view(100, 2, 64)
+    b.copy_(torch.from_numpy(blocks).to(dev))
+    a = torch.from_numpy(active).to(dev)
+    assert b.data_ptr() % 16 == 0 and b.data_ptr() != flat.data_ptr()
+    want = sha2.sha256_blocks_plain(b, a)
+    assert torch.equal(sha2.sha256_blocks(b, a), want)
+    digest = torch.empty((100 * 32 + 16,), dtype=torch.uint8, device=dev)
+    sha2.launch_k7(b, a, digest[16:].view(100, 32))
+    assert torch.equal(digest[16:].view(100, 32), want)
+    off = flat[4 : 4 + blocks.nbytes].view(100, 2, 64)
+    off.copy_(torch.from_numpy(blocks).to(dev))
+    assert off.data_ptr() % 16 == 4
+    assert torch.equal(sha2.sha256_blocks(off, a), want)
+    with pytest.raises(ValueError):
+        sha2.launch_k7(off, a, digest[: 100 * 32].view(100, 32))
+    with pytest.raises(ValueError):
+        sha2.launch_k7(b, a, digest[4 : 4 + 100 * 32].view(100, 32))
+
+
+@pytest.mark.parametrize("maxm", [32, 64, 128, 192])
+@pytest.mark.parametrize("V", [1, 31, 33, 10_001])
+def test_k1_matches_plain(dev, V, maxm):
+    """K1 at one row, ragged warps and the main path's width plus one, at
+    each caller's message width: every mlen edge, rows whose mlen exceeds
+    maxm (up to 2^24 - 1) and rows that are not live, over poisoned
+    outputs with a guard row past the end that must stay poisoned."""
+    import torch_sha_corpus as SC
+
+    from cometbft_tpu_torch.ops import sha2
+
+    payload, pubs = (torch.from_numpy(x).to(dev) for x in SC.payload_rows(np.random.default_rng(V + maxm), V,
+                                                                          68 + maxm))
+    nb = sha2.nblocks_for(maxm)
+    blocks = torch.full((V + 1, nb, 128), 0xAA, dtype=torch.uint8, device=dev)
+    active = torch.full((V + 1,), -0x55555556, dtype=torch.int32, device=dev)
+    sha2.launch_k1(payload, pubs, blocks, active)
+    pb, pa = sha2.parse_verify_payload_plain(payload, pubs)
+    assert torch.equal(blocks[:V], pb) and torch.equal(active[:V], pa)
+    assert bool((blocks[V] == 0xAA).all()) and int(active[V]) == -0x55555556
+    _, _, wb, wa, _ = sha2.parse_verify_payload(payload, pubs)
+    assert torch.equal(wb, pb) and torch.equal(wa, pa)
+
+
+def test_k1_misaligned_refusal(dev):
+    """launch_k1 refuses blocks that are not 16-byte aligned, payload or
+    pubkeys that are not 4-byte aligned and a width that is not a
+    multiple of 4 (K1 reads words), each with ValueError; a payload and
+    pubkeys at an odd offset pass through parse_verify_payload (copied to
+    fresh, aligned allocations) and give the plain version's blocks."""
+    import torch_sha_corpus as SC
+
+    from cometbft_tpu_torch.ops import sha2
+
+    V, width = 50, 196
+    payload_np, pubs_np = SC.payload_rows(np.random.default_rng(18), V, width)
+    pay_buf = torch.zeros((payload_np.size + 3,), dtype=torch.uint8, device=dev)
+    payload = pay_buf[3:].view(V, width)
+    payload.copy_(torch.from_numpy(payload_np).to(dev))
+    pub_buf = torch.zeros((pubs_np.size + 5,), dtype=torch.uint8, device=dev)
+    pubs = pub_buf[5:].view(V, 32)
+    pubs.copy_(torch.from_numpy(pubs_np).to(dev))
+    pb, pa = sha2.parse_verify_payload_plain(payload, pubs)
+    _, _, wb, wa, _ = sha2.parse_verify_payload(payload, pubs)
+    assert torch.equal(wb, pb) and torch.equal(wa, pa)
+    good_pay, good_pubs = payload.clone(), pubs.clone()
+    nb = sha2.nblocks_for(width - 68)
+    out = torch.empty((V * nb * 128 + 16,), dtype=torch.uint8, device=dev)
+    active = torch.empty((V,), dtype=torch.int32, device=dev)
+    sha2.launch_k1(good_pay, good_pubs, out[16:].view(V, nb, 128), active)
+    assert torch.equal(out[16:].view(V, nb, 128), pb) and torch.equal(active, pa)
+    with pytest.raises(ValueError):
+        sha2.launch_k1(good_pay, good_pubs, out[8 : 8 + V * nb * 128].view(V, nb, 128), active)
+    with pytest.raises(ValueError):
+        sha2.launch_k1(payload, good_pubs, out[16:].view(V, nb, 128), active)
+    with pytest.raises(ValueError):
+        sha2.launch_k1(good_pay, pubs, out[16:].view(V, nb, 128), active)
+    odd_np, odd_pubs = SC.payload_rows(np.random.default_rng(19), V, 101)
+    odd, odd_pubs = torch.from_numpy(odd_np).to(dev), torch.from_numpy(odd_pubs).to(dev)
+    with pytest.raises(ValueError):
+        sha2.parse_verify_payload(odd, odd_pubs)
+
+
 @pytest.mark.parametrize("n", [1, 2, 3, 5, 9, 130, 511, 512, 513, 1000])
 def test_k8_levels_match_plain_and_host(dev, n):
     """One K8 launch a tree (none for one leaf, which has no level): every
