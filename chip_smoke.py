@@ -25,7 +25,9 @@ it and read just after it.
      is that of a real Header whose validators_hash and
      next_validators_hash are the set's hash (K7 + K8 on the card);
   3. K1-K4 against their plain versions at the comb path's shapes
-     (byte-exact), the planted commit's bitmap against the plain version
+     (byte-exact), K1 through parse_verify_payload also at payload widths
+     that are not a multiple of 4 (69-71, 101, 113-115, 197, 241-243,
+     259; the wrapper pads them), the planted commit's bitmap against the plain version
      on every row and the host oracle on the planted rows plus 256
      sampled rows; K4 on block-edge batches of 1-10,001 lanes
      (tests/torch_comb_corpus.py) against the plain version and the
@@ -86,8 +88,10 @@ it and read just after it.
      versions on every row, their times beside the one-thread design's, the work each spent
      (the bound's operation count, per row from the run's data), their
      launch shape (threads a row, blocks an SM) and ptxas figures
-     (registers, stack; a spill fails); then the eight on a block-edge
-     batch against their plain versions and the host oracle;
+     (registers, stack; a spill fails, and so do K11 / K12 figures that
+     moved); K10 also at row counts on the edges of its warps and blocks
+     and through a CUDA graph on the active rows alone; then the eight on
+     a block-edge batch against their plain versions and the host oracle;
  15. SecpBatchVerifier.verify p50 over 10 calls with last_timings;
  16. BLS inputs: 10,000 keys whose secrets run a + i b (mod r) from the
      seed (a Jacobian add a key), the aggregate signature (sum sk) H(m),
@@ -153,6 +157,9 @@ TRUSTING_PERIOD_NS = 14 * 24 * 3600 * NS
 MAXM = 128  # payload message bucket of the 125- and 126-byte vote sign-bytes
 CHAIN_ID = "cometbft-tpu-torch-smoke"
 SEED = 20261017
+# payload widths that are not a multiple of 4, and the rows of each (phase 3)
+K1_ODD_WIDTHS = (69, 70, 71, 101, 113, 114, 115, 197, 241, 242, 243, 259)
+V_K1_ODD = 1_001
 # planted faults: a flipped message byte, s >= L, an undecodable R; absent rows
 I_FLIP, I_S_GE_L, I_BAD_R = 4_321, 777, 9_999
 ABSENT = [12, 5_000, 8_888]
@@ -336,6 +343,15 @@ FM_DBL, FM_MADD, FM_ADD, FM_CHAIN = 7, 11, 16, 270
 OPS_PER_MONT_MUL = 128 * 4
 # Keccak-f per block, from csrc/keccak.cuh: 7,474 32-bit operations
 OPS_PER_KECCAK_BLOCK = 7_474
+# The one-thread K10's time through a CUDA graph at the long batch's 4,096 x
+# 2 blocks (this script on an NVIDIA H100 80GB HBM3 at 700 W, before K10's
+# redesign; PERF.md's run 15d), printed in phase 14's log beside this run's;
+# never in the kernels line
+K10_MS_ONE_THREAD_GRAPH = 0.0137
+# K11 / K12's ptxas figures, kept as they were when K10 got its own row
+# body (keccak_group.cuh) and K12 kept keccak.cuh's: registers, and bytes
+# of stack in the RECOVER instantiations (0 in the others)
+SECP_REGISTERS, SECP_STACK_RECOVER = 148, 64
 
 
 def _nm2_window_muls(n: int) -> int:
@@ -672,11 +688,47 @@ def secp_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_a
     bounds["keccak256_blocks"] = ("operations", act10 * OPS_PER_KECCAK_BLOCK / INT32_OPS_PER_S,
                                   (kb.numel() + ka.numel() * 4 + kb.shape[0] * 32) / HBM_BYTES_PER_S)
     k10_graph_ms = graph_ms(lambda: K.launch_k10(kb, ka, out10), it)
+    # the same rows with the rows at active = 0 left out (the secp lane's Keccak rows alone)
+    live10 = ka > 0
+    kb_a, ka_a = kb[live10].contiguous(), ka[live10].contiguous()
+    out10_a = torch.empty((kb_a.shape[0], 32), dtype=torch.uint8, device=dev)
+    K.launch_k10(kb_a, ka_a, out10_a)
+    torch.cuda.synchronize()
+    require(torch.equal(out10_a, k10[live10]), "K10 on the active rows alone != K10 on the path's batch")
+    k10_graph_ms_active = graph_ms(lambda: K.launch_k10(kb_a, ka_a, out10_a), it)
     log(f"[14] K10 == plain on the long batch's {int((ka > 0).sum())} Keccak rows and on {N_SECP} rows "
         f"of 0-300 B with stale bytes; == host Keccak on 64 of them; {times['keccak256_blocks'][0]:.4f} ms by "
-        f"events at {kb.shape[0]} x {kb.shape[1]} blocks, {k10_graph_ms:.4f} through a CUDA graph")
+        f"events at {kb.shape[0]} x {kb.shape[1]} blocks, {k10_graph_ms:.4f} through a CUDA graph (the one-"
+        f"thread K10, run 15d: {K10_MS_ONE_THREAD_GRAPH} ms); {k10_graph_ms_active:.4f} through a graph on the "
+        f"{kb_a.shape[0]} active rows alone")
+    # K10 at row counts on the edges of its warps (16 pairs) and blocks, 1-3
+    # active blocks a row with stale bytes past each row's last block and
+    # every 7th row at active = 0 (tests/torch_sha_corpus.py)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_sha_corpus as SC
 
+    warp_rows = 32 // K.THREADS_PER_ROW
+    k10_edges = (1, 2, warp_rows - 1, warp_rows, warp_rows + 1, K.ROWS_PER_BLOCK - 1, K.ROWS_PER_BLOCK,
+                 K.ROWS_PER_BLOCK + 1, N_SECP + 1)
+    for n in k10_edges:
+        e_msgs, e_b, e_a = SC.stale_rows_keccak(np.random.default_rng(SEED + 14 + n), n, 3)
+        eb, ea = torch.from_numpy(e_b).to(dev), torch.from_numpy(e_a).to(dev)
+        got, want = K.keccak256_blocks(eb, ea), K.keccak256_blocks_plain(eb, ea)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"K10 != plain at {n} rows")
+        require([bytes(r) for r in got[:64].cpu().numpy()] == SC.digests_keccak(e_msgs[:64], e_a[:64]),
+                f"K10 != host Keccak at {n} rows")
+        results["keccak256_blocks"] = max(results["keccak256_blocks"], max_abs_err(got, want))
     from cometbft_tpu_torch import _build
+
+    k10_rep = ptxas_kernels(_build.BUILD_LOG["keccak"]["ptxas"], lambda line: "k10" if "k10_kernel" in line else None)
+    k10p = k10_rep["kernels"]["k10"]
+    require(k10_rep["any_spill"] == 0 and k10p.get("spill_bytes", 1) == 0, f"K10 spills: {k10p}")
+    k10_shape = {"threads_per_row": K.THREADS_PER_ROW, "rows_per_block": K.ROWS_PER_BLOCK, **k10p,
+                 "graph_ms_active": k10_graph_ms_active, "rows_active": int(kb_a.shape[0])}
+    log(f"[14] K10 == plain and the host Keccak at {k10_edges} rows of 1-3 blocks with stale bytes; "
+        f"{K.THREADS_PER_ROW} threads a row, {K.ROWS_PER_BLOCK} rows a block; {k10p['registers']} registers, "
+        f"{k10p.get('stack_bytes', 0)} bytes of stack, {k10p['spill_bytes']} spilled")
 
     def secp_entry(line):  # k11_kernel<GLV, RECOVER> / k12_kernel<...> -> LAUNCHES key
         m = re.search(r"(k1[12])_kernelILb([01])ELb([01])E", line)
@@ -688,6 +740,9 @@ def secp_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_a
     require(set(ptx) == set(S.LAUNCHES), f"secp.cu's ptxas report names {sorted(ptx)}")
     for name, f in ptx.items():
         require(f.get("spill_bytes", 1) == 0, f"{name} spills: {f}")
+        want_ptx = (SECP_REGISTERS, SECP_STACK_RECOVER if "recover" in name else 0)
+        require((f.get("registers"), f.get("stack_bytes", 0)) == want_ptx,
+                f"{name}: ptxas figures {f} moved from {want_ptx} (registers, stack)")
     require(rep["any_spill"] == 0, f"a function of secp.cu spills {rep['any_spill']} bytes")
     nrb = S.ROWS_PER_BLOCK
     kshape = {name: {"threads_per_row": S.THREADS_PER_ROW, "rows_per_block": nrb,
@@ -816,7 +871,8 @@ def secp_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_a
                       [rows_of[name]] if name in rows_of else [])
     record = {"secp_p50_ms": p50s, "secp_phases_p50_ms": phases, "secp_rows": N_SECP, "secp_kernels": kshape,
               "secp_decode_cache": dict(sv.CACHE_STATS),
-              "secp_planted": len(planted), "secp_path_launches": path_counts, "k10_graph_ms": k10_graph_ms}
+              "secp_planted": len(planted), "secp_path_launches": path_counts, "k10_graph_ms": k10_graph_ms,
+              "k10_shape": k10_shape}
     return results, times, bounds, meta, record
 
 
@@ -1865,6 +1921,25 @@ def main() -> int:
     results["sha512_blocks"] = max_abs_err(dig_k, dig_p)
     log(f"[3] K1, K2 == plain at V={V_MAIN}, maxm={MAXM}, two rows' mlen past maxm (active blocks "
         f"{int(act_k.sum())}, non-live {int((mixed[:, 67] == 0).sum())})")
+    # K1 through parse_verify_payload at widths that are not a multiple of 4
+    # (the wrapper pads them with zero columns): every mlen edge, rows whose
+    # mlen exceeds maxm, rows that are not live; at the callers' width the
+    # pad hands the payload itself to K1
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_sha_corpus as SC
+
+    require(sha2.pad_width4(payload) is payload, "the pad copied a payload whose width is a multiple of 4")
+    for w in K1_ODD_WIDTHS:
+        odd_p, odd_k = (torch.from_numpy(x).to(dev) for x in SC.payload_rows(np.random.default_rng(SEED + w),
+                                                                             V_K1_ODD, w))
+        _, _, ob_k, oa_k, _ = sha2.parse_verify_payload(odd_p, odd_k)
+        ob_p, oa_p = sha2.parse_verify_payload_plain(odd_p, odd_k)
+        torch.cuda.synchronize()
+        require(torch.equal(ob_k, ob_p) and torch.equal(oa_k, oa_p), f"K1 != plain at width {w}")
+        results["parse_verify_payload"] = max(results["parse_verify_payload"], max_abs_err(ob_k, ob_p),
+                                              max_abs_err(oa_k, oa_p))
+    log(f"[3] K1 through parse_verify_payload == plain at the widths {K1_ODD_WIDTHS} (padded to a multiple "
+        f"of 4), {V_K1_ODD} rows each with mlen past maxm on some")
 
     # K3 on 1,024 keys with an off-curve and a non-canonical-y key
     k3_pubs = entry.pubs[:V_K3_PARITY].clone()
@@ -2767,6 +2842,8 @@ def main() -> int:
                        field_muls_design=FIELD_MULS_PER_VERIFY + (comb.THREADS_PER_LANE - 2) * 9)
         if name in secp_record["secp_kernels"]:  # launch shape and ptxas figures
             rec.update(secp_record["secp_kernels"][name])
+        if name == "keccak256_blocks":  # launch shape, ptxas figures, the active rows alone
+            rec.update(secp_record["k10_shape"])
         if name in bls_record["bls_shapes"]:  # launch shape and ptxas figures
             rec.update(bls_record["bls_shapes"][name])
         if name == "aggregate_g1":  # ms and bound_ms cover both stages; launches count the tile stage

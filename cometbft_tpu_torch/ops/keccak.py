@@ -1,7 +1,8 @@
 """Batched Keccak-256 (the original Ethereum padding 0x01 ... 0x80, NOT
 SHA3-256's 0x06) — K10, the port of cometbft_tpu/ops/keccak.py.
 
-Kernel (CUDA C++ in csrc/keccak.cu, permutation in csrc/keccak.cuh):
+Kernel (CUDA C++ in csrc/keccak.cu, its row body on a pair of threads in
+csrc/keccak_group.cuh):
 
   K10 ``keccak256_blocks``  replaces cometbft_tpu/ops/keccak.py:144
 
@@ -24,6 +25,9 @@ from ..crypto.keccak import _RC, _ROT
 RATE = 136  # 1088-bit rate for a 256-bit output: 17 lanes a block
 
 LAUNCHES = {"keccak256_blocks": 0}
+# K10's launch shape (csrc/keccak.cu K10_THREADS, csrc/keccak_group.cuh)
+THREADS_PER_ROW = 2
+ROWS_PER_BLOCK = 32
 
 # round constants as int64 bit patterns
 _RC_I64 = [rc - (1 << 64) if rc >= 1 << 63 else rc for rc in _RC]
@@ -137,9 +141,15 @@ def keccak256_blocks(blocks: torch.Tensor, active: torch.Tensor) -> torch.Tensor
 
 
 def launch_k10(blocks, active, digest) -> None:
-    """K10 into a preallocated (N, 32) digest on the current stream."""
+    """K10 into a preallocated (N, 32) digest on the current stream.  Rows
+    of no blocks (nb = 0) hash nothing: their digests are zeros, as at
+    active = 0, and K10, which reads every row's first block, is not
+    launched."""
+    if blocks.shape[1] == 0:
+        digest.zero_()
+        return
     if blocks.data_ptr() % 8 or digest.data_ptr() % 8:
-        raise ValueError("K10 loads and stores 8-byte lanes: blocks and digest must be 8-byte aligned")
+        raise ValueError("K10 reads and writes the words of 8-byte lanes: blocks and digest must be 8-byte aligned")
     with torch.cuda.device(blocks.device):
         code = _build.lib("keccak").k10_keccak256_blocks(
             blocks.data_ptr(), active.data_ptr(), digest.data_ptr(),

@@ -148,14 +148,28 @@ def parse_verify_payload_plain(payload: torch.Tensor, pubs: torch.Tensor):
     return blocks, active
 
 
+def pad_width4(payload: torch.Tensor) -> torch.Tensor:
+    """The payload with zero columns on the right up to a width that is a
+    multiple of 4, for K1's word loads; the payload itself when its width
+    already is one (every caller's: 68 + a multiple of 32).  The blocks of
+    the original width are the first nblocks_for(width - 68) of the
+    padded payload's: bytes past maxm are zeros in both, and the 0x80
+    byte and the length words sit where mlen alone puts them."""
+    extra = -payload.shape[1] % 4
+    if not extra:
+        return payload
+    return torch.nn.functional.pad(payload, (0, extra))
+
+
 def parse_verify_payload(payload: torch.Tensor, pubs: torch.Tensor):
     """Decode the tight payload and assemble its SHA-512 blocks.
 
     payload (V, 68 + maxm) uint8, pubs (V, 32) uint8 ->
     (r (V, 32), s (V, 32), blocks (V, nb, 128) uint8, active (V,) int32,
     live (V,) bool); r and s are views of the payload, active is 0 for
-    rows that are not live.  On the card the width must be a multiple of
-    4 (K1 reads words; every caller's is 68 + a multiple of 32)."""
+    rows that are not live.  On the card K1 runs on the payload padded to
+    a width that is a multiple of 4 (pad_width4) and writes the
+    original width's nb blocks."""
     _check_payload(payload, pubs)
     r, s = payload[:, :32], payload[:, 32:64]
     live = payload[:, 67] == 1
@@ -164,9 +178,9 @@ def parse_verify_payload(payload: torch.Tensor, pubs: torch.Tensor):
         return r, s, blocks, active, live
     if payload.device.type != "cuda":
         raise ValueError(f"unsupported device {payload.device}")
-    payload, pubs = aligned4(payload), aligned4(pubs)
     V, width = payload.shape
     nb = nblocks_for(width - 68)
+    payload, pubs = aligned4(pad_width4(payload)), aligned4(pubs)
     blocks = torch.empty((V, nb, 128), dtype=torch.uint8, device=payload.device)
     active = torch.empty((V,), dtype=torch.int32, device=payload.device)
     launch_k1(payload, pubs, blocks, active)
@@ -181,9 +195,10 @@ def launch_k1(payload, pubs, blocks, active) -> None:
     16-byte aligned, ``payload`` and ``pubs`` 4-byte aligned and the
     payload's width a multiple of 4; there is no slower route.  Every
     caller's are: the blocks are a fresh allocation (parse_verify_payload,
-    and the sharded plane through it), and the payload is 68 + a multiple
-    of 32 bytes wide (models/comb_verifier._bucket_mlen), its row ranges
-    at multiples of that width."""
+    and the sharded plane through it), and parse_verify_payload pads any
+    other width (pad_width4); the callers' payloads are 68 + a multiple
+    of 32 bytes wide (models/comb_verifier._bucket_mlen), their row
+    ranges at multiples of that width."""
     V, width = payload.shape
     if blocks.data_ptr() % 16:
         raise ValueError("K1 stores 16 bytes at a time: blocks must be 16-byte aligned")

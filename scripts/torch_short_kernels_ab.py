@@ -30,19 +30,27 @@ launches (``ms``) with ``host_ms``, the host's own time a call:
   - ``k7_10000``: K7 on the validator-set tree's 10,000 leaves (1 block);
   - ``k8_16384``, ``k8_10000``: K8, one whole tree above its leaf hashes;
   - ``k9``: K9 on the proofs' 16,384 x 15 coordinates;
-  - ``k10``: K10 on 2,725 rows of 2 blocks (the secp lane's Keccak rows).
+  - ``k10``: K10 on 2,725 rows of 2 blocks, all active (the secp lane's
+    Keccak rows alone);
+  - ``k10_path``: K10 at the secp lane's shape, 4,096 rows of 2 blocks of
+    which 1,371 (seeded) are at active = 0, as
+    models/secp_verifier.staged_e launches it.
 
 Before them, one thread's SM cycles a SHA-256 round of each tree's K7 row
 body (``k7_round``: ``sha256_row`` over a row of 63 blocks, the card
-otherwise idle, its digest checked against hashlib).  Prints each tree's
-kernels' ptxas figures (registers, stack, spill), the SASS global loads
-and stores of its sha2 and merkle kernels (where the toolkit has
+otherwise idle, its digest checked against hashlib), and one warp's SM
+cycles a Keccak round of each tree's K10 row body (``k10_round``: a warp
+alone, 32 rows of the one-thread body or 16 pairs of keccak_group.cuh's,
+each row K10_ROUND_BLOCKS blocks, digests checked against the host
+Keccak).  Prints each tree's kernels' ptxas figures (registers, stack,
+spill; K10's beside K11 / K12's), the SASS global loads and stores of its
+sha2 and merkle kernels and K10's instruction mix (where the toolkit has
 ``cuobjdump``), then one JSON line.  Needs the card and nvcc; from the
 repo's root:
 
     python3 scripts/torch_short_kernels_ab.py NAME=DIR[:PATCH[+PATCH...]] ...
 
-e.g. ``parent=out/ab15/parent this=. k1_byte=.:k1_byte k7_64=.:k7_64``.
+e.g. ``parent=out/ab16/parent this=. k10_interleaved=.:k10_interleaved``.
 """
 
 from __future__ import annotations
@@ -71,12 +79,13 @@ import torch_k8_k15_ab as AB  # noqa: E402  (library loading, SASS census, event
 
 SEED = 20261018
 ITERS = {"k1": 50, "k2": 50, "k4": 10, "k7_16384": 50, "k7_proof": 50, "k7_10000": 50, "k8_16384": 50,
-         "k8_10000": 50, "k9": 50, "k10": 50}
+         "k8_10000": 50, "k9": 50, "k10": 50, "k10_path": 50}
 OUT = os.path.join(ROOT, "build", "short_ab")  # the trees' patched sources and libraries
 SOURCES = ("sha2", "merkle", "keccak", "comb", "secp")
 KERNELS = {"sha2": ("k1_kernel", "k2_kernel"), "merkle": ("k7_kernel", "k8_kernel", "k9_kernel"),
            "keccak": ("k10_kernel",), "comb": ("k4_kernel",), "secp": ("k11_kernel", "k12_kernel")}
 V_MAIN, MAXM, N_LEAVES, V_K10 = 10_000, 128, 16_384, 2_725
+N_K10_PATH = 4_096  # the secp lane's rows; N_K10_PATH - V_K10 of them at active = 0
 INCLUDE = re.compile(r'#include "([^"]+)"')
 
 # name -> [(file, the shipped text, its replacement)], applied to a copy of a tree's csrc
@@ -94,6 +103,30 @@ PATCHES = {
     if (i < n) w |= (uint32_t)LDG(p + i) << (8 * i);
   return w;""")],
     "k7_64": [("merkle.cu", "#define K7_THREADS 128 ", "#define K7_THREADS 64 ")],
+    # K10's row body with each lane's bits split even / odd over the pair (the whole header replaced)
+    "k10_interleaved": [("keccak_group.cuh", None, os.path.join(ROOT, "scripts", "k10_forms",
+                                                                 "keccak_group_interleaved.cuh"))],
+    # K10's pair body with one, two, four, six, twelve or all 24 rounds a loop trip
+    "k10_one_round": [("keccak_group.cuh", '#define KG_ROUNDS_A_TRIP _Pragma("unroll 8")',
+                      '#define KG_ROUNDS_A_TRIP _Pragma("unroll 1")')],
+    "k10_unroll2": [("keccak_group.cuh", '#define KG_ROUNDS_A_TRIP _Pragma("unroll 8")',
+                    '#define KG_ROUNDS_A_TRIP _Pragma("unroll 2")')],
+    "k10_unroll4": [("keccak_group.cuh", '#define KG_ROUNDS_A_TRIP _Pragma("unroll 8")',
+                    '#define KG_ROUNDS_A_TRIP _Pragma("unroll 4")')],
+    "k10_unroll6": [("keccak_group.cuh", '#define KG_ROUNDS_A_TRIP _Pragma("unroll 8")',
+                    '#define KG_ROUNDS_A_TRIP _Pragma("unroll 6")')],
+    "k10_unroll12": [("keccak_group.cuh", '#define KG_ROUNDS_A_TRIP _Pragma("unroll 8")',
+                     '#define KG_ROUNDS_A_TRIP _Pragma("unroll 12")')],
+    "k10_unroll24": [("keccak_group.cuh", '#define KG_ROUNDS_A_TRIP _Pragma("unroll 8")',
+                     '#define KG_ROUNDS_A_TRIP _Pragma("unroll")')],
+    # the first block's loads issued only once the warp's longest row is known
+    "k10_load_after": [("keccak_group.cuh", "  kg_load(nxt, row, t);\n  NOUNROLL",
+                        "  if (nrun > 0) kg_load(nxt, row, t);\n  NOUNROLL")],
+    # K10's pairs at 16 or 64 rows a block
+    "k10_t32": [("keccak.cu", "#define K10_THREADS 64 ", "#define K10_THREADS 32 ")],
+    "k10_t128": [("keccak.cu", "#define K10_THREADS 64 ", "#define K10_THREADS 128 ")],
+    # the one-thread K10 (a tree before keccak_group.cuh) at 32 rows a block
+    "k10_one_t32": [("keccak.cu", "int threads = 128;", "int threads = 32;")],
 }
 
 
@@ -109,6 +142,9 @@ def prepare(name: str, spec: str) -> str:
     for p in patches.split("+"):
         for header, old, new in PATCHES[p]:
             path = os.path.join(dst, header)
+            if old is None:  # the whole file from `new`
+                shutil.copyfile(new, path)
+                continue
             with open(path) as f:
                 text = f.read()
             if text.count(old) != 1:
@@ -191,6 +227,97 @@ def k7_round_cycles(name: str, csrc: str, dev) -> dict:
     return {"cycles_a_round": int(cyc.item()) / (64 * ROUND_BLOCKS), "right": right}
 
 
+# One warp alone hashes rows of K10_ROUND_BLOCKS blocks with the tree's
+# K10 row body, timed by clock64: 32 rows on the one-thread body
+# (keccak.cuh), 16 pairs on keccak_group.cuh's where the tree has it.  SM
+# cycles a Keccak round of a warp's chain (its loads included).
+K10_ROUND_BLOCKS = 32
+K10_ROUND_PROBE = r"""
+#include <cuda_runtime.h>
+
+#if __has_include("keccak_group.cuh")
+#include "keccak_group.cuh"
+#define PROBE_ROWS 16
+#else
+#include "keccak.cuh"
+#define PROBE_ROWS 32
+#endif
+
+__global__ void k10_round_probe(const uint8_t* blocks, int nb, uint32_t* out, long long* cyc) {
+  const int t = threadIdx.x;
+  __syncwarp();
+  const long long t0 = clock64();
+#if PROBE_ROWS == 16
+  uint32_t dig[KG_GL][4];
+  keccak_pair_row(dig, blocks + (size_t)(t >> 1) * nb * KECCAK_RATE, nb, nb, t & 1);
+  for (int i = 0; i < 4; i++) out[(t >> 1) * 8 + 2 * i + (t & 1)] = dig[0][i];
+#else
+  uint64_t a[25];
+  keccak256_row_state(a, blocks + (size_t)t * nb * KECCAK_RATE, nb, nb);
+  for (int i = 0; i < 4; i++) reinterpret_cast<uint64_t*>(out)[t * 4 + i] = a[i];
+#endif
+  __syncwarp();
+  if (t == 0) cyc[0] = clock64() - t0;
+}
+
+extern "C" int k10_round_probe_run(const void* blocks, int nb, void* out, void* cyc) {
+  k10_round_probe<<<1, 32>>>((const uint8_t*)blocks, nb, (uint32_t*)out, (long long*)cyc);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int k10_round_probe_rows() { return PROBE_ROWS; }
+"""
+
+
+def k10_round_cycles(name: str, csrc: str, dev) -> dict:
+    """SM cycles a Keccak round of the tree's K10 row body on one warp
+    alone (rows of K10_ROUND_BLOCKS blocks, L2-warm; the third of three
+    launches), its digests checked against the host Keccak."""
+    from cometbft_tpu_torch import _build
+    from cometbft_tpu_torch.crypto.keccak import keccak256
+    from cometbft_tpu_torch.ops import keccak as K
+
+    src, out = os.path.join(OUT, f"k10_probe_{name}.cu"), os.path.join(OUT, f"libk10_probe_{name}.so")
+    with open(src, "w") as f:
+        f.write(K10_ROUND_PROBE)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", csrc, "-o", out, src], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(out)
+    lib.k10_round_probe_run.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    rows = lib.k10_round_probe_rows()
+    rng = np.random.default_rng(SEED + 1)
+    msgs = [rng.bytes(K10_ROUND_BLOCKS * K.RATE - 1) for _ in range(rows)]
+    blocks, active = K.pad_messages_keccak(msgs)
+    assert (active == K10_ROUND_BLOCKS).all()
+    b = torch.from_numpy(blocks).to(dev)
+    digest = torch.zeros((rows, 32), dtype=torch.uint8, device=dev)
+    cyc = torch.zeros((1,), dtype=torch.int64, device=dev)
+    for _ in range(3):
+        _build.check(lib.k10_round_probe_run(b.data_ptr(), K10_ROUND_BLOCKS, digest.data_ptr(), cyc.data_ptr()),
+                     "k10_round_probe")
+        torch.cuda.synchronize()
+    right = [bytes(r) for r in digest.cpu().numpy()] == [keccak256(m) for m in msgs]
+    return {"rows": rows, "cycles_a_round": int(cyc.item()) / (24 * K10_ROUND_BLOCKS), "right": right}
+
+
+def op_mix(text: str | None, kernel: str) -> dict | None:
+    """SASS instructions of ``kernel`` by opcode (NOPs left out), most
+    first; None where the toolkit has no cuobjdump."""
+    if text is None:
+        return None
+    for block in AB.SASS_FUNCTION.split(text)[1:]:
+        name, body = block.split("\n", 1)
+        if kernel in name:
+            ops = [op.split()[0] if not op.startswith("@") else op.split()[1]
+                   for _, op in AB.SASS_INSTRUCTION.findall(body)]
+            mix = {}
+            for o in ops:
+                if not o.startswith("NOP"):
+                    mix[o.split(".")[0]] = mix.get(o.split(".")[0], 0) + 1
+            return dict(sorted(mix.items(), key=lambda kv: -kv[1]))
+    return None
+
+
 def k1_inputs(rng, dev):
     """The timed payload (R || s, a 125- or 126-byte message, live) and a
     parity payload of every mlen edge, rows that are not live and rows
@@ -268,6 +395,10 @@ def main() -> int:
     k10_msgs = [rng.bytes(256) for _ in range(V_K10)]
     kb_np, ka_np = K.pad_messages_keccak(k10_msgs)
     kb, ka = torch.from_numpy(kb_np).to(dev), torch.from_numpy(ka_np).to(dev)
+    path_msgs = [rng.bytes(256) for _ in range(N_K10_PATH)]
+    pb_np, pa_np = K.pad_messages_keccak(path_msgs)
+    pa_np[rng.permutation(N_K10_PATH)[: N_K10_PATH - V_K10]] = 0
+    pb, pa = torch.from_numpy(pb_np).to(dev), torch.from_numpy(pa_np).to(dev)
     print(f"inputs in {time.perf_counter() - t0:.1f} s", flush=True)
 
     builds, failed = {}, False
@@ -291,14 +422,20 @@ def main() -> int:
         rec[n][f"{s}_ptxas"] = b["ptxas"]
         rec[n][f"{s}_any_spill"] = b["any_spill"]
         rec[n][f"{s}_build_s"] = b["build_s"]
-        if s in ("sha2", "merkle"):
-            census = AB.sass_census(AB.sass_text(b["path"]))
+        if s in ("sha2", "merkle", "keccak"):
+            text = AB.sass_text(b["path"])
+            census = AB.sass_census(text)
             rec[n][f"{s}_sass"] = None if census is None else {
                 k: {"instructions": v["instructions"], "memory": v["memory"], "wide": v["wide"]}
                 for k, v in census.items()}
+            if s == "keccak":
+                rec[n]["k10_op_mix"] = op_mix(text, "k10_kernel")
         print(f"{n}: {s}.cu ({d}) built in {b['build_s']:.1f} s; {b['ptxas']}; spills {b['any_spill']}", flush=True)
-        if s in ("sha2", "merkle"):
+        if s in ("sha2", "merkle", "keccak"):
             print(f"{n}: {s} SASS {rec[n][f'{s}_sass']}", flush=True)
+    for n in trees:
+        print(f"{n}: K10 {rec[n]['keccak_ptxas']} beside K11 / K12 {rec[n]['secp_ptxas']}; K10 SASS mix "
+              f"{rec[n].get('k10_op_mix')}", flush=True)
 
     # the plain versions' outputs, and the buffers every tree writes
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
@@ -332,6 +469,8 @@ def main() -> int:
     out9 = torch.empty_like(want9)
     want10 = K.keccak256_blocks_plain(kb, ka)
     out10 = torch.empty_like(want10)
+    want10p = K.keccak256_blocks_plain(pb, pa)
+    out10p = torch.empty_like(want10p)
     from cometbft_tpu_torch.crypto import secp256k1eth as host_eth
 
     assert [bytes(r) for r in want10[:64].cpu().numpy()] == [host_eth.keccak256(m) for m in k10_msgs[:64]]
@@ -365,9 +504,10 @@ def main() -> int:
         _build.check(libs[n]["merkle"].k9_merkle_gather(f.data_ptr(), coords.data_ptr(), out9.data_ptr(),
                                                         coords.shape[0], f.shape[0], stream()), "k9")
 
-    def k10(n):
-        _build.check(libs[n]["keccak"].k10_keccak256_blocks(kb.data_ptr(), ka.data_ptr(), out10.data_ptr(),
-                                                            kb.shape[0], kb.shape[1], stream()), "k10")
+    def k10(n, path=False):
+        b, a, o = (pb, pa, out10p) if path else (kb, ka, out10)
+        _build.check(libs[n]["keccak"].k10_keccak256_blocks(b.data_ptr(), a.data_ptr(), o.data_ptr(),
+                                                            b.shape[0], b.shape[1], stream()), "k10")
 
     ok = True
     for n in libs:
@@ -399,6 +539,9 @@ def main() -> int:
         out10.fill_(0xAA)
         k10(n)
         eq["k10"] = bool(torch.equal(out10, want10))
+        out10p.fill_(0xAA)
+        k10(n, path=True)
+        eq["k10_path"] = bool(torch.equal(out10p, want10p))
         rec[n]["equal_plain"] = eq
         ok &= all(eq.values())
         print(f"{n}: == plain {eq}", flush=True)
@@ -407,12 +550,16 @@ def main() -> int:
         rec[n]["k7_round"] = k7_round_cycles(n, csrcs[n], dev)
         ok &= rec[n]["k7_round"]["right"]
         print(f"{n}: K7's row body, one thread alone: {rec[n]['k7_round']}", flush=True)
+        rec[n]["k10_round"] = k10_round_cycles(n, csrcs[n], dev)
+        ok &= rec[n]["k10_round"]["right"]
+        print(f"{n}: K10's row body, one warp alone: {rec[n]['k10_round']}", flush=True)
 
     def fns(n):
         return {"k1": lambda: k1(n), "k2": lambda: k2(n), "k4": lambda: k4(n),
                 "k7_16384": lambda: k7(n, "k7_16384"), "k7_proof": lambda: k7(n, "k7_proof"),
                 "k7_10000": lambda: k7(n, "k7_10000"), "k8_16384": lambda: k8(n, N_LEAVES),
-                "k8_10000": lambda: k8(n, V_MAIN), "k9": lambda: k9(n), "k10": lambda: k10(n)}
+                "k8_10000": lambda: k8(n, V_MAIN), "k9": lambda: k9(n), "k10": lambda: k10(n),
+                "k10_path": lambda: k10(n, path=True)}
 
     order = list(libs) + list(reversed(libs))
     for f in ITERS:
@@ -428,11 +575,11 @@ def main() -> int:
                                    f"(host {rec[n][f]['host_ms']})" for f in ITERS), flush=True)
     shapes = {"k1": [V_MAIN, nb1], "k7_16384": list(k7_in["k7_16384"][0].shape[:2]),
               "k7_proof": list(k7_in["k7_proof"][0].shape[:2]), "k7_10000": list(k7_in["k7_10000"][0].shape[:2]),
-              "k9": [int(coords.shape[0])], "k10": list(kb.shape[:2]), "k4": [V_MAIN]}
+              "k9": [int(coords.shape[0])], "k10": list(kb.shape[:2]), "k10_path": list(pb.shape[:2]), "k4": [V_MAIN]}
     active = {k: int(a.sum()) for k, (_, a, _) in k7_in.items()}
     print(smi)
     print(json.dumps({"device": smi, "iters": ITERS, "warmup": AB.WARMUP, "shapes": shapes, "k7_active": active,
-                      "k10_active": int(ka.sum()), "trees": rec}))
+                      "k10_active": int(ka.sum()), "k10_path_active": int(pa.sum()), "trees": rec}))
     return 0 if ok else 1
 
 

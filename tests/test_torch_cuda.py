@@ -459,12 +459,30 @@ def test_k1_matches_plain(dev, V, maxm):
     assert torch.equal(wb, pb) and torch.equal(wa, pa)
 
 
+@pytest.mark.parametrize("width", [69, 70, 71, 101, 113, 114, 115, 197, 241, 242, 243, 259])
+def test_k1_odd_widths_match_plain(dev, width):
+    """parse_verify_payload at widths that are not a multiple of 4 (it pads
+    the payload for K1's word loads): the plain version's blocks and
+    active counts at the original width, rows whose mlen exceeds maxm
+    included."""
+    import torch_sha_corpus as SC
+
+    from cometbft_tpu_torch.ops import sha2
+
+    payload, pubs = (torch.from_numpy(x).to(dev) for x in SC.payload_rows(np.random.default_rng(width), 101, width))
+    _, _, blocks, active, _ = sha2.parse_verify_payload(payload, pubs)
+    pb, pa = sha2.parse_verify_payload_plain(payload, pubs)
+    assert blocks.shape == pb.shape and torch.equal(blocks, pb) and torch.equal(active, pa)
+
+
 def test_k1_misaligned_refusal(dev):
     """launch_k1 refuses blocks that are not 16-byte aligned, payload or
     pubkeys that are not 4-byte aligned and a width that is not a
     multiple of 4 (K1 reads words), each with ValueError; a payload and
     pubkeys at an odd offset pass through parse_verify_payload (copied to
-    fresh, aligned allocations) and give the plain version's blocks."""
+    fresh, aligned allocations) and give the plain version's blocks, and
+    so does a width that is not a multiple of 4 (padded with zero
+    columns)."""
     import torch_sha_corpus as SC
 
     from cometbft_tpu_torch.ops import sha2
@@ -494,8 +512,12 @@ def test_k1_misaligned_refusal(dev):
         sha2.launch_k1(good_pay, pubs, out[16:].view(V, nb, 128), active)
     odd_np, odd_pubs = SC.payload_rows(np.random.default_rng(19), V, 101)
     odd, odd_pubs = torch.from_numpy(odd_np).to(dev), torch.from_numpy(odd_pubs).to(dev)
+    onb = sha2.nblocks_for(101 - 68)
     with pytest.raises(ValueError):
-        sha2.parse_verify_payload(odd, odd_pubs)
+        sha2.launch_k1(odd, odd_pubs, torch.empty((V, onb, 128), dtype=torch.uint8, device=dev), active)
+    _, _, ob, oa, _ = sha2.parse_verify_payload(odd, odd_pubs)
+    qb, qa = sha2.parse_verify_payload_plain(odd, odd_pubs)
+    assert torch.equal(ob, qb) and torch.equal(oa, qa)
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 5, 9, 130, 511, 512, 513, 1000])
@@ -629,6 +651,52 @@ def test_k10_matches_plain_and_host(dev):
     got = K.keccak256_blocks(b, a)
     assert torch.equal(got, K.keccak256_blocks_plain(b, a))
     assert [bytes(r) for r in got.cpu().numpy()] == [keccak256(m) for m in msgs]
+
+
+@pytest.mark.parametrize("n", [1, 2, 15, 16, 17, 31, 32, 33, 4_097])
+def test_k10_row_edges_match_plain_and_host(dev, n):
+    """K10 at row counts on the edges of its warps (16 pairs) and blocks
+    (32 rows): rows of 1-3 active blocks with stale bytes past each row's
+    last block and every 7th row at active = 0."""
+    import torch_sha_corpus as SC
+
+    from cometbft_tpu_torch.ops import keccak as K
+
+    assert 32 // K.THREADS_PER_ROW == 16 and K.ROWS_PER_BLOCK == 32
+    msgs, blocks, active = SC.stale_rows_keccak(np.random.default_rng(100 + n), n, 3)
+    b, a = torch.from_numpy(blocks).to(dev), torch.from_numpy(active).to(dev)
+    got = K.keccak256_blocks(b, a)
+    assert torch.equal(got, K.keccak256_blocks_plain(b, a))
+    assert [bytes(r) for r in got.cpu().numpy()] == SC.digests_keccak(msgs, active)
+
+
+def test_k10_rows_of_no_blocks(dev):
+    """Rows of no blocks hash nothing: zeros, as the plain version gives,
+    with no launch of K10 (which reads every row's first block)."""
+    from cometbft_tpu_torch.ops import keccak as K
+
+    b = torch.zeros((5, 0, K.RATE), dtype=torch.uint8, device=dev)
+    a = torch.ones((5,), dtype=torch.int32, device=dev)
+    before = K.LAUNCHES["keccak256_blocks"]
+    got = K.keccak256_blocks(b, a)
+    assert K.LAUNCHES["keccak256_blocks"] == before
+    assert torch.equal(got, K.keccak256_blocks_plain(b, a)) and not got.any()
+
+
+def test_k10_at_the_secp_lanes_shape(dev):
+    """K10 at the secp lane's shape: 4,096 rows of 2 blocks, 1,371 of them
+    at active = 0 (zeros), against the plain version and the host Keccak."""
+    from cometbft_tpu_torch.crypto.keccak import keccak256
+    from cometbft_tpu_torch.ops import keccak as K
+
+    rng = np.random.default_rng(4096)
+    msgs = [rng.bytes(256) for _ in range(4096)]
+    blocks, active = K.pad_messages_keccak(msgs)
+    active[rng.permutation(4096)[:1371]] = 0
+    b, a = torch.from_numpy(blocks).to(dev), torch.from_numpy(active).to(dev)
+    got = K.keccak256_blocks(b, a)
+    assert torch.equal(got, K.keccak256_blocks_plain(b, a))
+    assert [bytes(r) for r in got.cpu().numpy()] == [keccak256(m) if x else bytes(32) for m, x in zip(msgs, active)]
 
 
 @pytest.fixture(scope="module")

@@ -12,7 +12,10 @@ buffers with a guard row past the end, are held against the port's plain
 K1 (ops/sha2.parse_verify_payload_plain) and the JAX package's
 parse_verify_payload.  Copies of the header with a planted fault (0x80 a
 byte late, the length bytes in the wrong order, the pubkey at the wrong
-offset) must fail.  Skips only where no host C++ compiler exists.
+offset) must fail.  Widths that are not a multiple of 4 (69-71, 101, 113-115,
+197, 241-243, 259) run through the card route's zero pad
+(ops/sha2.pad_width4) and must give the original width's blocks.  Skips
+only where no host C++ compiler exists.
 """
 
 import ctypes
@@ -34,6 +37,8 @@ torch.set_num_threads(1)
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "cometbft_tpu_torch" / "csrc"
 WIDTHS = [100, 132, 196, 260, 140]
+# widths that are not a multiple of 4, which the card route pads
+ODD_WIDTHS = [69, 70, 71, 101, 113, 114, 115, 197, 241, 242, 243, 259]
 
 HARNESS = r"""
 #include "sha2.cuh"
@@ -77,11 +82,12 @@ def _payload(seed: int, width: int):
     return SC.payload_rows(np.random.default_rng(seed), 37, width)
 
 
-def _run(lib, payload, pubs):
+def _run(lib, payload, pubs, nb=None):
     """The harness's (blocks (V, nb, 128), active (V,)) over poisoned
-    buffers; a guard row past the last must stay poisoned."""
+    buffers (nb the payload width's unless given); a guard row past the
+    last must stay poisoned."""
     V, width = payload.shape
-    nb = sha2.nblocks_for(width - 68)
+    nb = sha2.nblocks_for(width - 68) if nb is None else nb
     blocks = np.full((V + 1, nb, 128), 0xAA, np.uint8)
     active = np.full(V + 1, -0x55555556, np.int32)
     lib.h_k1(payload.ctypes.data_as(ctypes.c_void_p), pubs.ctypes.data_as(ctypes.c_void_p),
@@ -99,6 +105,36 @@ def test_chunk_body_matches_plain_and_jax(shipped, width):
     _, _, jb, ja, _ = jsha2.parse_verify_payload(jnp.asarray(payload), jnp.asarray(pubs))
     assert np.array_equal(blocks, np.asarray(jb)) and np.array_equal(active, np.asarray(ja))
     assert (active[2::5] == 0).all() and (active[:2] > 0).all()
+
+
+@pytest.mark.parametrize("width", ODD_WIDTHS)
+def test_odd_width_through_the_pad_matches_plain_and_jax(shipped, width):
+    """A width that is not a multiple of 4 goes through the card route's
+    pad (ops/sha2.pad_width4): the chunk body on the padded payload,
+    writing the original width's block count, gives the blocks and
+    active counts of the plain version and the JAX package at the
+    original width, rows whose mlen exceeds maxm included; so does the
+    plain version of the padded payload cut to that block count."""
+    payload, pubs = _payload(width, width)
+    padded = sha2.pad_width4(torch.from_numpy(payload))
+    assert padded.shape == (payload.shape[0], width + (-width % 4)) and not padded[:, width:].any()
+    assert torch.equal(padded[:, :width], torch.from_numpy(payload))
+    nb = sha2.nblocks_for(width - 68)
+    blocks, active = _run(shipped, padded.numpy(), pubs, nb)
+    pb, pa = sha2.parse_verify_payload_plain(torch.from_numpy(payload), torch.from_numpy(pubs))
+    assert np.array_equal(blocks, pb.numpy()) and np.array_equal(active, pa.numpy())
+    _, _, jb, ja, _ = jsha2.parse_verify_payload(jnp.asarray(payload), jnp.asarray(pubs))
+    assert np.array_equal(blocks, np.asarray(jb)) and np.array_equal(active, np.asarray(ja))
+    qb, qa = sha2.parse_verify_payload_plain(padded, torch.from_numpy(pubs))
+    assert torch.equal(qb[:, :nb], pb) and torch.equal(qa, pa)
+    assert (active[2::5] == 0).all() and (active[:2] > 0).all()
+
+
+def test_pad_is_no_copy_at_a_multiple_of_4():
+    """At the callers' widths (68 + a multiple of 32) the pad returns the
+    payload itself."""
+    payload = torch.zeros((3, 196), dtype=torch.uint8)
+    assert sha2.pad_width4(payload) is payload
 
 
 @pytest.mark.parametrize("mutation", sorted(MUTATIONS))

@@ -1,9 +1,10 @@
 """Seeded SHA-512 rows for K2 (csrc/sha2.cu), SHA-256 rows for K7
-(csrc/merkle.cu) and payload rows for K1 (csrc/sha2.cu), shared by
-tests/test_torch_sha512_host.py, tests/test_torch_sha256_host.py,
-tests/test_torch_k1_host.py, tests/test_torch_cuda.py and
-scripts/torch_k8_k15_ab.py: messages of every length up to nb blocks'
-worth (the block-edge lengths first), padded by the port's host
+(csrc/merkle.cu), Keccak-256 rows for K10 (csrc/keccak.cu) and payload
+rows for K1 (csrc/sha2.cu), shared by tests/test_torch_sha512_host.py,
+tests/test_torch_sha256_host.py, tests/test_torch_keccak_host.py,
+tests/test_torch_k1_host.py, tests/test_torch_cuda.py, chip_smoke.py
+and scripts/torch_k8_k15_ab.py: messages of every length up to nb
+blocks' worth (the block-edge lengths first), padded by the port's host
 padders, random bytes in each row's blocks past its own, and every 7th
 row from the fourth at active = 0 (the state must stay the initial
 one)."""
@@ -12,10 +13,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from cometbft_tpu_torch.ops import sha2
+from cometbft_tpu_torch.ops import keccak, sha2
 
 EDGE_LENGTHS = (0, 1, 111, 112, 113, 127, 128, 239, 240, 256)
 EDGE_LENGTHS_256 = (0, 1, 55, 56, 57, 63, 64, 119, 120, 128, 183, 184)
+EDGE_LENGTHS_KECCAK = (0, 1, 135, 136, 137, 271, 272, 300)
 
 
 def stale_rows(rng: np.random.Generator, n: int, nb: int):
@@ -78,3 +80,26 @@ def payload_rows(rng: np.random.Generator, V: int, width: int):
     payload[:, 67] = 1
     payload[2::5, 67] = rng.choice(np.array([0, 2, 255], np.uint8), size=len(payload[2::5]))
     return payload, rng.integers(0, 256, size=(V, 32), dtype=np.uint8)
+
+
+def stale_rows_keccak(rng: np.random.Generator, n: int, nb: int):
+    """(msgs, blocks (n, nb, 136) uint8, active (n,) int32): the Keccak-256
+    rows of stale_rows (0x01 ... 0x80 padding, 136-byte blocks)."""
+    top = nb * keccak.RATE - 1  # the longest message whose padding fits nb blocks
+    lens = [m for m in EDGE_LENGTHS_KECCAK + (top,) if m <= top][:n]
+    lens += rng.integers(0, top + 1, size=n - len(lens)).tolist()
+    msgs = [rng.bytes(int(m)) for m in lens]
+    blocks, active = keccak.pad_messages_keccak(msgs, max_len=top)
+    blocks, active = blocks.copy(), active.copy()
+    for i, a in enumerate(active.tolist()):
+        blocks[i, a:] = rng.integers(0, 256, size=(nb - a, keccak.RATE), dtype=np.uint8)
+    active[3::7] = 0
+    return msgs, blocks, active
+
+
+def digests_keccak(msgs, active) -> list[bytes]:
+    """The port's host Keccak-256 of each row, 32 zero bytes (the state
+    before any block) at active = 0."""
+    from cometbft_tpu_torch.crypto.keccak import keccak256
+
+    return [keccak256(m) if a else bytes(32) for m, a in zip(msgs, np.asarray(active).tolist())]
