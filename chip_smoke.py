@@ -8,9 +8,11 @@ the Merkle kernels, then the commit), batched Merkle proof serving over
 a 16,384-leaf tree, the secp256k1 ECDSA lane on a 4,096-transaction
 CheckTx batch of the Cosmos, Ethereum and ecrecover wire shapes, and the
 BLS12-381 lane on a 10,000-validator aggregate commit, the sharded
-verify plane over torch.distributed at world 1 and 4, and the verify
-service under load — on one NVIDIA card, holds each kernel against its
-plain PyTorch version, and prints the card's numbers.  Every path that
+verify plane over torch.distributed at world 1 and 4, the verify
+service under load, and the blocksync replay of 5,000-validator commits
+through the comb path's staging thread — on one NVIDIA card, holds each
+kernel against its plain PyTorch version, and prints the card's
+numbers.  Every path that
 crypto/batch.create_batch_verifier serves (verify_commit, the light
 client, the uncached, secp and BLS verifiers) reaches its kernels
 through the verify service (verifysvc/service.py): its host worker
@@ -119,7 +121,7 @@ it and read just after it.
      fails);
  21. one JSON line with every kernel (rows 23-26 of the kernel table too:
      the sharded entries, their per-rank kernels' bounds summed), then the
-     contract line; it runs after phases 22-24:
+     contract line; it runs after phases 22-25:
  22. the sharded plane at world 1 (a one-rank NCCL group in this
      process, the comb path bound with set_active_mesh): verify_commit
      over phase 2's set on the good and the planted commit,
@@ -144,9 +146,28 @@ it and read just after it.
      (c) two tenants flooding MEMPOOL under a tenant quota of 16: the
      rogue tenant refused (scope tenant, checked on the host), the victim
      never; (d) the 10,000-row BLS aggregate commit warm (K14), phase 10's
-     tree queried in requests of 64 from 8 threads under PROOF (K7 / K8 /
-     K9 once a dispatch, every proof byte for byte), and
-     light.verify_adjacent at 10,000 validators under BACKGROUND.
+     tree queried through models/proof_server.prove in requests of 64
+     from 8 threads under PROOF (K7 / K8 / K9 once a dispatch, every root
+     and proof byte for byte, none answered on the host), one request against a tree evicted between
+     its register and its dispatch (proved again on the host by
+     _assemble, no launch), and light.verify_adjacent at 10,000
+     validators under BACKGROUND;
+ 25. the blocksync replay at BASELINE.json config 5's width: 5,000
+     validators of equal power, 32 commits (the config's 50,000 blocks,
+     cut for the time limit) each signed by every validator over its
+     Vote sign-bytes, with a flipped sign-bytes byte in one block, a
+     foreign key in one and 20% of the rows absent in one: (a)
+     blocksync.CommitStreamVerifier under BLOCKSYNC at depth 1 and 2 in
+     turns, every block's verdicts against the expected ones (the host
+     oracle on the planted rows and 64 sampled rows a block), depth 2
+     equal to depth 1, ms a block and blocks/s; (b) the reactor's
+     verify-ahead (blocksync.verify_ahead: submit_verify_commit_light,
+     depth 2) over the same chain from a cold set, uncached while K3
+     builds in the background, then comb, the blocks a route; (c) each
+     path's launches; (d) with tracing on, Chrome traces of (a) at depth
+     2 and of phase 4's verify_commit under build/, the ms a call of
+     every verify.* span and the share of the wall in which the staging
+     thread's slab fill overlaps the caller's own work.
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
@@ -1782,7 +1803,6 @@ def service_phases(dev, log, require, zero_counts, read_counts, d):
     from cometbft_tpu_torch.types import validation
     from cometbft_tpu_torch.verifysvc import checktx
     from cometbft_tpu_torch.verifysvc import service as S
-    from cometbft_tpu_torch.verifysvc.client import ServiceBatchVerifier
 
     t_phase = time.perf_counter()
     smi = d["smi"]
@@ -1996,32 +2016,52 @@ def service_phases(dev, log, require, zero_counts, read_counts, d):
     require(t_bls["dispatched_batches"]["consensus"] == BLS_SVC_CALLS + 1, f"24(d): BLS tallies {t_bls}")
     p50_bls = float(np.median(bls_walls[1:]))
 
-    tree, leaves, host_proofs = d["tree"], d["leaves"], d["host_proofs"]
+    leaves, host_proofs, host_root = d["leaves"], d["host_proofs"], d["root"]
     requests = [list(range(j, min(j + N_PROOF_QUERIES, len(leaves))))
                 for j in range(0, len(leaves), N_PROOF_QUERIES)]
     bad_proofs, req_walls = [], []
 
     def prover(k):
+        # the front door: register the tree, submit under PROOF, the root
+        # and the proofs back in this request's order
         for r in requests[k::N_PROOF_SENDERS]:
-            bv = ServiceBatchVerifier(S.Klass.PROOF, S.MODE_PROOF, service=svc)
-            for i in r:
-                bv.add(*proof_server.encode_query(tree, i))
             t0 = time.perf_counter()
-            ok, rows_ = bv.verify()
+            root_, proofs_ = proof_server.prove(leaves, r, svc=svc)
             req_walls.append((time.perf_counter() - t0) * 1e3)
-            if not ok or rows_ != [host_proofs[i] for i in r]:
+            if root_ != host_root or proofs_ != [host_proofs[i] for i in r]:
                 bad_proofs.append(r[0])
+
+    # every host path of the front door, counted: a refusal or a timeout
+    # (_prove_items(device=False)), a None row re-proved by _assemble, a
+    # tree the service proved below its device width (each reaches
+    # proofs_from_byte_slices); the 256 requests must take none of them
+    real_items, real_host = proof_server._prove_items, proof_server.cmerkle.proofs_from_byte_slices
+    host_paths = {"prove_items_host": 0, "proofs_from_byte_slices": 0}
+
+    def counted_items(items_, device):
+        if device is False:
+            host_paths["prove_items_host"] += 1
+        return real_items(items_, device)
+
+    def counted_host(leaves_):
+        host_paths["proofs_from_byte_slices"] += 1
+        return real_host(leaves_)
 
     before = svc.stats()
     zero_counts()
     threads = [threading.Thread(target=prover, args=(k,), daemon=True) for k in range(N_PROOF_SENDERS)]
-    t0 = time.perf_counter()
-    for th in threads:
-        th.start()
-    for th in threads:
-        th.join(600)
-    t_proofs = time.perf_counter() - t0
+    proof_server._prove_items, proof_server.cmerkle.proofs_from_byte_slices = counted_items, counted_host
+    try:
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        t_proofs = time.perf_counter() - t0
+    finally:
+        proof_server._prove_items, proof_server.cmerkle.proofs_from_byte_slices = real_items, real_host
     require(not any(th.is_alive() for th in threads), "24(d): a proof sender hung")
+    require(not any(host_paths.values()), f"24(d): requests answered on the host: {host_paths}")
     c = read_counts("service_proofs")
     t_p = tallies(before, svc.stats())
     require(not bad_proofs, f"24(d): proofs != proofs_from_byte_slices at requests {bad_proofs[:5]}")
@@ -2030,6 +2070,36 @@ def service_phases(dev, log, require, zero_counts, read_counts, d):
             f"24(d): proof tallies {t_p}")
     require(c["sha256_blocks"] == c["merkle_tree"] == c["merkle_gather"] == n_disp,
             f"24(d): {n_disp} PROOF dispatches, launches {c}")
+    # one request against a tree evicted between its register and its
+    # dispatch (a tree cache of one, another tree registered at once): the
+    # service answers None rows and _assemble proves again on the host
+    real_register, cap = proof_server.register_tree, os.environ.get("COMETBFT_TPU_PROOF_TREE_CACHE")
+
+    def evicting(leaves_):
+        digest = real_register(leaves_)
+        real_register([b"another tree"])
+        return digest
+
+    os.environ["COMETBFT_TPU_PROOF_TREE_CACHE"] = "1"
+    proof_server.register_tree = evicting
+    proof_server._prove_items, proof_server.cmerkle.proofs_from_byte_slices = counted_items, counted_host
+    zero_counts()
+    try:
+        ev_root, ev_proofs = proof_server.prove(leaves, requests[1], svc=svc)
+    finally:
+        proof_server._prove_items, proof_server.cmerkle.proofs_from_byte_slices = real_items, real_host
+        proof_server.register_tree = real_register
+        if cap is None:
+            os.environ.pop("COMETBFT_TPU_PROOF_TREE_CACHE", None)
+        else:
+            os.environ["COMETBFT_TPU_PROOF_TREE_CACHE"] = cap
+    c_ev = read_counts()
+    require(ev_root == host_root and ev_proofs == [host_proofs[i] for i in requests[1]],
+            "24(d): the evicted tree's request != proofs_from_byte_slices")
+    require(c_ev["sha256_blocks"] == c_ev["merkle_tree"] == c_ev["merkle_gather"] == 0,
+            f"24(d): the evicted tree's request launched {c_ev}")
+    require(host_paths == {"prove_items_host": 0, "proofs_from_byte_slices": 1},
+            f"24(d): the evicted tree's request took host paths {host_paths}, not _assemble's one re-prove")
 
     before = svc.stats()
     zero_counts()
@@ -2050,10 +2120,340 @@ def service_phases(dev, log, require, zero_counts, read_counts, d):
         f"K13 / K15; {len(requests)} proof requests of {N_PROOF_QUERIES} queries over phase 10's "
         f"{len(leaves)}-leaf tree from {N_PROOF_SENDERS} threads under PROOF: {n_disp} dispatches, K7 / K8 "
         f"/ K9 {n_disp} launches each, request p50 {float(np.median(req_walls)):.2f} ms, {t_proofs:.2f} s "
-        f"in all, every proof == proofs_from_byte_slices byte for byte; light.verify_adjacent at "
+        f"in all, through models/proof_server.prove, every root and proof == proofs_from_byte_slices byte "
+        f"for byte, no request answered on the host (no refusal, timeout, None row or host-route tree); a "
+        f"request against an evicted tree: None rows, proved again on the host by _assemble (no K7 / K8 / "
+        f"K9, one proofs_from_byte_slices), the same bytes; light.verify_adjacent at "
         f"{len(vals.validators)} validators under BACKGROUND: verified ({t_light:.1f} ms; 1 background "
         f"batch, K4 once)")
     log(f"[24] the service's phase: {time.perf_counter() - t_phase:.1f} s")
+    return rec
+
+
+# ---------------------------------------------------------------- blocksync replay
+# BASELINE.json config 5, "internal/blocksync fast-sync replay: 50k blocks x
+# 5k-validator commits streamed": the set's width uncut, its depth cut to
+# 32 blocks for the time limit.
+
+V_REPLAY = 5_000  # validators of every replayed commit (BASELINE.json config 5)
+N_REPLAY_BLOCKS = 32  # heights h .. h + 31 (the config's 50,000, cut)
+REPLAY_HEIGHT = 2_000_000
+REPLAY_FLIP = (5, 1_234)  # (block, row): a sign-bytes byte the signer never signed (inside +2/3)
+REPLAY_FOREIGN = (11, 2_500)  # (block, row): a key outside the set in (a)'s items
+REPLAY_ABSENT = 20  # the block with 20% of its rows absent
+REPLAY_TURNS = 2  # (a): depth 1, depth 2, in turns, this many times each
+N_REPLAY_ORACLE_SAMPLE = 64  # host-oracle rows a block, beside the planted ones
+REPLAY_FILL_REPS = 20  # (a): the lone fills of one block, host clock
+
+
+def _overlap_ms(a: list[tuple[float, float]], b: list[tuple[float, float]]) -> float:
+    """Total length (ms) of the intersection of two sets of [start, end]
+    intervals (each sorted, disjoint within its set)."""
+    total, j = 0.0, 0
+    for s, e in a:
+        while j < len(b) and b[j][1] <= s:
+            j += 1
+        k = j
+        while k < len(b) and b[k][0] < e:
+            total += max(0.0, min(e, b[k][1]) - max(s, b[k][0]))
+            k += 1
+    return total / 1e3
+
+
+def _span_summary(events: list[dict]) -> dict:
+    """{name: [calls, ms a call]} of a trace's verify.* spans."""
+    out: dict[str, list] = {}
+    for e in events:
+        if e.get("ph") == "X" and e["name"].startswith(("verify.", "blocksync.")):
+            n = out.setdefault(e["name"], [0, 0.0])
+            n[0] += 1
+            n[1] += e["dur"] / 1e3
+    return {k: [c, round(ms / c, 4)] for k, (c, ms) in sorted(out.items())}
+
+
+def replay_phases(dev, log, require, zero_counts, read_counts, d):
+    """Phase 25 of main(): the blocksync replay at BASELINE.json config 5's
+    width.  ``d`` carries phase 2's inputs for the traced verify_commit.
+    Returns the record."""
+    from cometbft_tpu_torch import types as T
+    from cometbft_tpu_torch.blocksync import CommitStreamVerifier, verify_ahead
+    from cometbft_tpu_torch.crypto import ed25519 as host
+    from cometbft_tpu_torch.models import comb_verifier as cv
+    from cometbft_tpu_torch.models.verifier import CpuEd25519BatchVerifier
+    from cometbft_tpu_torch.types import validation
+    from cometbft_tpu_torch.utils import tracing
+    from cometbft_tpu_torch.verifysvc import ServiceBatchVerifier, global_service
+    from cometbft_tpu_torch.wire.canonical import Timestamp
+
+    t_phase = time.perf_counter()
+    smi = d["smi"]
+    rng = np.random.default_rng(SEED + 25)
+    rec = {}
+
+    # ------------------------------------------------ inputs
+    t0 = time.perf_counter()
+    keys = [host.PrivKey.from_seed(rng.bytes(32)) for _ in range(V_REPLAY)]
+    vals = T.ValidatorSet([T.Validator(k.pub_key(), 10) for k in keys])
+    by_addr = {k.pub_key().address(): k for k in keys}
+    signers = [by_addr[v.address] for v in vals.validators]
+    pubs = vals.pub_keys_bytes()
+    alien = host.PrivKey.from_seed(rng.bytes(32))
+    chain, items_of, expect_of = [], [], []
+    for b in range(N_REPLAY_BLOCKS):
+        height = REPLAY_HEIGHT + b
+        bid = T.BlockID(hash=rng.bytes(32), part_set_header=T.PartSetHeader(total=1, hash=rng.bytes(32)))
+        nanos = rng.integers(0, 1_000_000_000, size=V_REPLAY).tolist()
+        absent = set(rng.choice(V_REPLAY, V_REPLAY // 5, replace=False).tolist()) if b == REPLAY_ABSENT else set()
+        cs = [T.CommitSig.absent() if i in absent else
+              T.CommitSig(T.BLOCK_ID_FLAG_COMMIT, v.address, Timestamp(seconds=TS_SECONDS + b, nanos=nanos[i]), b"")
+              for i, v in enumerate(vals.validators)]
+        commit = T.Commit(height=height, round=0, block_id=bid, signatures=cs)
+        sb = commit.vote_sign_bytes_fn(CHAIN_ID)
+        for i, c in enumerate(cs):
+            if i not in absent:
+                c.signature = signers[i].sign(sb(i))
+        if b == REPLAY_FLIP[0]:  # the signer signed nanos; the commit carries nanos ^ 1
+            c = cs[REPLAY_FLIP[1]]
+            c.timestamp = Timestamp(seconds=c.timestamp.seconds, nanos=c.timestamp.nanos ^ 1)
+        chain.append((bid, height, commit))
+        items = [(pubs[i], sb(i), c.signature) for i, c in enumerate(cs) if i not in absent]
+        expect = [True] * len(items)
+        if b == REPLAY_FLIP[0]:
+            expect[REPLAY_FLIP[1]] = False
+        if b == REPLAY_FOREIGN[0]:  # a foreign key, validly signing its own message
+            m = b"foreign-" + items[REPLAY_FOREIGN[1]][1]
+            items[REPLAY_FOREIGN[1]] = (alien.pub_key().data, m, alien.sign(m))
+        items_of.append(items)
+        expect_of.append((all(expect), expect))
+    t_inputs = time.perf_counter() - t0
+    # the host oracle on every planted row and a sample of each block's rows
+    t0 = time.perf_counter()
+    n_oracle = 0
+    for b, items in enumerate(items_of):
+        rows = set(rng.choice(len(items), N_REPLAY_ORACLE_SAMPLE, replace=False).tolist())
+        rows |= {REPLAY_FLIP[1]} if b == REPLAY_FLIP[0] else set()
+        rows |= {REPLAY_FOREIGN[1]} if b == REPLAY_FOREIGN[0] else set()
+        rows = sorted(rows)
+        oracle = CpuEd25519BatchVerifier()
+        oracle._items = [items[i] for i in rows]
+        _, got = oracle.verify()
+        require(got == [expect_of[b][1][i] for i in rows], f"25: block {b}'s expected verdicts != the host oracle")
+        n_oracle += len(rows)
+    log(f"[25] inputs: {V_REPLAY} validators of equal power, {N_REPLAY_BLOCKS} commits at heights "
+        f"{REPLAY_HEIGHT}..{REPLAY_HEIGHT + N_REPLAY_BLOCKS - 1} (BASELINE.json config 5: 50,000 blocks x "
+        f"5,000-validator commits; depth cut to {N_REPLAY_BLOCKS} blocks for the time limit, width uncut), "
+        f"every row signed over its Vote sign-bytes: {t_inputs:.1f} s; planted: block {REPLAY_FLIP[0]} row "
+        f"{REPLAY_FLIP[1]} a flipped sign-bytes byte, block {REPLAY_FOREIGN[0]} row {REPLAY_FOREIGN[1]} a "
+        f"foreign key (in (a)'s items), block {REPLAY_ABSENT} {V_REPLAY // 5} rows absent; expected verdicts "
+        f"== the host oracle on {n_oracle} rows ({time.perf_counter() - t0:.1f} s)")
+
+    # ------------------------------------------------ (a) CommitStreamVerifier, depth 1 and 2 in turns
+    cache = cv.ValsetCombCache()
+    entry = cache.ensure(pubs, device=dev)
+    svc = global_service(dev)
+    before = svc.stats()
+    runs = {1: [], 2: []}
+    outs = {}
+    zero_counts()
+    for _ in range(REPLAY_TURNS):
+        for depth in (1, 2):
+            t0 = time.perf_counter()
+            got = list(CommitStreamVerifier(entry, depth=depth, service=svc).run(items_of))
+            runs[depth].append((time.perf_counter() - t0) * 1e3)
+            require(got == expect_of, f"25(a): depth {depth}: a block's verdicts != the expected (host oracle)")
+            if depth in outs:
+                require(got == outs[depth], f"25(a): depth {depth}'s verdicts moved between turns")
+            outs[depth] = got
+    require(outs[1] == outs[2], "25(a): depth 2's verdicts != depth 1's")
+    c_a = read_counts("replay_stream")
+    n_runs = 2 * REPLAY_TURNS
+    comb_blocks = N_REPLAY_BLOCKS - 1
+    require(c_a["parse_verify_payload"] == c_a["verify_cached"] == comb_blocks * n_runs
+            and c_a["sha512_blocks"] == N_REPLAY_BLOCKS * n_runs and c_a["verify_batch"] == n_runs
+            and c_a["build_a_tables"] == 0,
+            f"25(a): launches {c_a}: each run K1, K4 on {comb_blocks} blocks, K2 on all, K5 on the demoted one")
+    st = svc.stats()
+    n_bs = st["dispatched_batches"]["blocksync"] - before["dispatched_batches"]["blocksync"]
+    require(n_bs == N_REPLAY_BLOCKS * n_runs and not any(
+        st["rejected"][k] - before["rejected"][k] for k in st["rejected"]), f"25(a): {n_bs} BLOCKSYNC batches")
+    # the stage's fresh page-locked result buffer a call (models/comb_verifier.py): its host cost
+    pin_us = []
+    for _ in range(200):
+        t0 = time.perf_counter()
+        torch.empty((entry.vpad // 8 + 1,), dtype=torch.uint8, pin_memory=True)
+        pin_us.append((time.perf_counter() - t0) * 1e6)
+    rec["replay_pinned_result_alloc_us"] = float(np.median(pin_us))
+    ms_block = {k: min(v) / N_REPLAY_BLOCKS for k, v in runs.items()}
+    # one block's work alone, with no caller beside it: the staging
+    # thread's fill (host clock), and K1, K2 and K4 at the stream's shape
+    # by events, each alone and back to back as the stage launches them
+    from cometbft_tpu_torch.ops import comb, sha2
+    b0 = 0
+    items0 = items_of[b0]
+    rows0 = np.asarray([entry.index[p] for p, _, _ in items0], dtype=np.int64)
+    fills_alone = []
+    for _ in range(REPLAY_FILL_REPS):
+        slab = entry.acquire_slab(cv._payload_width(items0))
+        t0 = time.perf_counter()
+        cv._fill_payload(slab, items0, rows0)
+        fills_alone.append((time.perf_counter() - t0) * 1e3)
+        entry.release_slab(slab)
+    payload0 = torch.from_numpy(cv.assemble_payload(items0, rows0, entry.vpad)).to(dev)
+    lanes, width0 = payload0.shape
+    nb0 = sha2.nblocks_for(width0 - 68)
+    blocks0 = torch.empty((lanes, nb0, 128), dtype=torch.uint8, device=dev)
+    active0 = torch.empty((lanes,), dtype=torch.int32, device=dev)
+    dig0 = torch.empty((lanes, 64), dtype=torch.uint8, device=dev)
+    out0 = torch.empty((lanes // 8 + 1,), dtype=torch.uint8, device=dev)
+    cnt0 = torch.empty((2,), dtype=torch.int32, device=dev)
+    valid0 = entry.valid.to(torch.uint8)
+    block_kernels = {
+        "parse_verify_payload": lambda: sha2.launch_k1(payload0, entry.pubs, blocks0, active0),
+        "sha512_blocks": lambda: sha2.launch_k2(blocks0, active0, dig0),
+        "verify_cached": lambda: comb.launch_k4(entry.tables, valid0, payload0, dig0, entry.b_tables, cnt0, out0),
+        "device_verify": lambda: cv.device_verify(entry.tables, entry.valid, entry.pubs, payload0, entry.b_tables),
+    }
+    for fn in block_kernels.values():
+        fn()
+    torch.cuda.synchronize()
+    require(torch.equal(out0, cv.device_verify(entry.tables, entry.valid, entry.pubs, payload0, entry.b_tables))
+            and np.array_equal(np.unpackbits(out0[:-1].cpu().numpy(), count=lanes).astype(bool)[rows0],
+                               np.asarray(expect_of[b0][1])) and bool(out0[-1]) == expect_of[b0][0],
+            f"25(a): block {b0}'s K4 verdicts alone != the expected")
+    block_ms = {name: cuda_ms(fn, *TIMING["verify_cached" if name == "device_verify" else name][:2])
+                for name, fn in block_kernels.items()}
+    k_sum = block_ms["parse_verify_payload"] + block_ms["sha512_blocks"] + block_ms["verify_cached"]
+    rec["replay_block_alone"] = {"rows": len(items0), "lanes": lanes, "width": width0, "kernels_ms": block_ms,
+                                 "k1_k2_k4_ms": k_sum, "fill_ms_p50": float(np.median(fills_alone)),
+                                 "fill_ms": fills_alone,
+                                 "k1_k2_k4_share_of_ms_a_block": {f"depth{k}": k_sum / v for k, v in ms_block.items()}}
+    rec["replay_ms_per_block"] = {f"depth{k}": v for k, v in ms_block.items()}
+    rec["replay_blocks_per_s"] = {f"depth{k}": 1e3 / v for k, v in ms_block.items()}
+    rec["replay_runs_ms"] = {f"depth{k}": v for k, v in runs.items()}
+    log(f"[25a] ({smi}) CommitStreamVerifier over the {N_REPLAY_BLOCKS} commits under BLOCKSYNC, tables warm, "
+        f"depth 1 and 2 in turns x {REPLAY_TURNS}: every block's verdicts == the expected (host oracle), "
+        f"in order, depth 2 == depth 1 bit for bit; runs (ms) "
+        + json.dumps({k: [round(x, 2) for x in v] for k, v in runs.items()})
+        + f"; best run a block: depth 1 {ms_block[1]:.3f} ms ({1e3 / ms_block[1]:.1f} blocks/s), depth 2 "
+        f"{ms_block[2]:.3f} ms ({1e3 / ms_block[2]:.1f} blocks/s); launches {json.dumps({k: v for k, v in c_a.items() if v})} "
+        f"(the foreign-key block demoted to K2 -> K5); the stage's fresh pinned result buffer "
+        f"({entry.vpad // 8 + 1} B) costs {rec['replay_pinned_result_alloc_us']:.1f} us a call (p50 of 200 "
+        f"allocations, host clock)")
+    log(f"[25a] ({smi}) block {b0} alone ({len(items0)} rows on {lanes} lanes, payload width {width0}): the fill "
+        f"p50 {rec['replay_block_alone']['fill_ms_p50']:.3f} ms over {REPLAY_FILL_REPS} (host clock, no caller "
+        f"beside it); by events K1 {block_ms['parse_verify_payload']:.4f} ms, K2 {block_ms['sha512_blocks']:.4f}, "
+        f"K4 {block_ms['verify_cached']:.4f} (sum {k_sum:.4f}), the three back to back through device_verify "
+        f"{block_ms['device_verify']:.4f} ms; K1 + K2 + K4 alone over the best run's ms a block: depth 1 "
+        f"{100 * k_sum / ms_block[1]:.2f}%, depth 2 {100 * k_sum / ms_block[2]:.2f}% (a ratio of two "
+        f"measurements, not a traced idle share); K4's verdicts == the expected")
+
+    # ------------------------------------------------ (b) the reactor's verify-ahead, from a cold set
+    cold = cv.ValsetCombCache()
+    zero_counts()
+    t0 = time.perf_counter()
+    got_b = list(verify_ahead(CHAIN_ID, vals, chain, 2, device=dev, comb_cache=cold))
+    t_b = (time.perf_counter() - t0) * 1e3
+    cold.join_async()
+    c_b = read_counts("replay_verify_ahead")
+    require([h for h, _, _ in got_b] == [h for _, h, _ in chain], "25(b): heights out of order")
+    for b, (h, route, err) in enumerate(got_b):
+        if b == REPLAY_FLIP[0]:
+            require(isinstance(err, validation.CommitVerificationError)
+                    and str(err).startswith(f"wrong signature (#{REPLAY_FLIP[1]}):"),
+                    f"25(b): block {b} not blamed on row {REPLAY_FLIP[1]}: {err!r}")
+        else:
+            require(err is None, f"25(b): block {b} at height {h} refused: {err!r}")
+    routes = [r for _, r, _ in got_b]
+    n_route = {r: routes.count(r) for r in sorted(set(routes))}
+    require(set(routes) <= {"comb", "plain"} and routes[0] == "plain"
+            and routes == sorted(routes, key=lambda r: r == "comb"),
+            f"25(b): routes {routes}: uncached first (the cold set), then the comb route once its tables landed")
+    # uncached requests of one class may merge into one batch (the plain
+    # mode coalesces), so K5 runs at most once a plain block
+    require(c_b["build_a_tables"] == 1 and c_b["verify_cached"] == c_b["parse_verify_payload"]
+            == n_route.get("comb", 0) and 1 <= c_b["verify_batch"] <= n_route["plain"]
+            and c_b["sha512_blocks"] == c_b["verify_cached"] + c_b["verify_batch"],
+            f"25(b): launches {c_b} for routes {n_route}")
+    rec.update(replay_verify_ahead_routes=n_route, replay_verify_ahead_k5_launches=c_b["verify_batch"],
+               replay_verify_ahead_ms=t_b,
+               replay_verify_ahead_ms_per_block=t_b / N_REPLAY_BLOCKS)
+    log(f"[25b] ({smi}) the reactor's verify-ahead (submit_verify_commit_light under BLOCKSYNC, depth 2) over "
+        f"the {N_REPLAY_BLOCKS} commits from a cold set: {json.dumps(n_route)} blocks by route (uncached while "
+        f"K3 built the tables in the background, then comb; the uncached blocks in {c_b['verify_batch']} K5 "
+        f"launches, merged in the class), {t_b:.1f} ms in all ({t_b / N_REPLAY_BLOCKS:.2f} "
+        f"ms a block, the commits' sign-bytes and power tally included); block {REPLAY_FLIP[0]} blamed on row "
+        f"{REPLAY_FLIP[1]}, every other commit verified; launches {json.dumps({k: v for k, v in c_b.items() if v})}")
+
+    # ------------------------------------------------ (d) traces
+    os.makedirs("build", exist_ok=True)
+    real_collect = ServiceBatchVerifier.collect
+    tracing.set_enabled(True)  # what COMETBFT_TPU_TRACE=1 sets at import
+    try:
+        tracing.reset()
+
+        def commits():  # the caller's host work a block: the commit's sign-bytes and items
+            for b, (bid, h, commit) in enumerate(chain):
+                with tracing.span("replay.assemble", {"height": h}):
+                    sb = commit.vote_sign_bytes_fn(CHAIN_ID)
+                    items = [(pubs[i], sb(i), c.signature) for i, c in enumerate(commit.signatures)
+                             if not c.absent_flag()]
+                    if b == REPLAY_FOREIGN[0]:
+                        items[REPLAY_FOREIGN[1]] = items_of[b][REPLAY_FOREIGN[1]]
+                yield items
+
+        def waited(self, ticket):
+            with tracing.span("replay.caller_wait"):
+                return real_collect(self, ticket)
+
+        ServiceBatchVerifier.collect = waited
+        t0 = time.perf_counter_ns()
+        got_d = list(CommitStreamVerifier(entry, depth=2, service=svc).run(commits()))
+        t1 = time.perf_counter_ns()
+        ServiceBatchVerifier.collect = real_collect
+        require(got_d == expect_of, "25(d): the traced run's verdicts != the expected")
+        stream_path = os.path.join("build", "trace_replay_depth2.json")
+        n_ev = tracing.export_chrome_trace(stream_path)
+        events = tracing.chrome_trace_events()
+        tracing.reset()
+        validation.verify_commit(d["chain_id"], d["vals"], d["bid"], d["height"], d["good"], device=dev,
+                                 comb_cache=d["cache"])
+        commit_path = os.path.join("build", "trace_verify_commit.json")
+        n_ev4 = tracing.export_chrome_trace(commit_path)
+        events4 = tracing.chrome_trace_events()
+    finally:
+        ServiceBatchVerifier.collect = real_collect
+        tracing.set_enabled(False)
+        tracing.reset()
+    names = {e["tid"]: e["args"]["name"] for e in events if e.get("name") == "thread_name"}
+
+    def intervals(name, thread=None):
+        return sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                      if e.get("ph") == "X" and e["name"] == name
+                      and (thread is None or names.get(e["tid"]) == thread))
+
+    fills = intervals("verify.slab_fill")
+    require(fills and {names.get(e["tid"]) for e in events if e.get("name") == "verify.slab_fill"}
+            == {"comb-stage_0"}, "25(d): the fills did not all run on the staging thread")
+    caller = intervals("replay.assemble", "MainThread")
+    wall_ms = (t1 - t0) / 1e6
+    overlap = _overlap_ms(fills, caller)
+    fill_ms = sum(e - s for s, e in fills) / 1e3
+    wait_ms = sum(e - s for s, e in intervals("replay.caller_wait", "MainThread")) / 1e3
+    spans = _span_summary(events)
+    spans4 = _span_summary(events4)
+    rec.update(replay_trace={"path": stream_path, "events": n_ev, "wall_ms": wall_ms, "spans": spans,
+                             "fill_ms": fill_ms, "fill_overlap_caller_ms": overlap,
+                             "fill_overlap_share_of_wall": overlap / wall_ms, "caller_wait_ms": wait_ms},
+               verify_commit_trace={"path": commit_path, "events": n_ev4, "spans": spans4})
+    log(f"[25d] ({smi}) traces (tracing on, as COMETBFT_TPU_TRACE=1): {stream_path} ({n_ev} events) of (a) at "
+        f"depth 2 with the caller assembling each commit from its sign-bytes, {wall_ms:.1f} ms; the staging "
+        f"thread's verify.slab_fill {fill_ms:.1f} ms in all, {overlap:.1f} ms of it beside the caller's "
+        f"assembly: {100 * overlap / wall_ms:.2f}% of the wall; the caller waited {wait_ms:.1f} ms in collect; "
+        f"spans [calls, ms a call] " + json.dumps(spans))
+    log(f"[25d] ({smi}) {commit_path} ({n_ev4} events) of phase 4's verify_commit at {len(d['vals'].validators)} "
+        f"validators, tables warm: spans [calls, ms a call] " + json.dumps(spans4))
+    rec["replay_phase_s"] = time.perf_counter() - t_phase
+    log(f"[25] the replay phase: {rec['replay_phase_s']:.1f} s")
     return rec
 
 
@@ -3060,8 +3460,14 @@ def main() -> int:
     svc_record = service_phases(dev, log, require, zero_counts, read_counts, {
         "smi": smi, "chain_id": CHAIN_ID, "vals": vals, "bid": bid, "height": height, "good": good,
         "faulted": faulted, "blame": blame, "cache": cache, "entry": entry, "good_items": good_items,
-        "secp": secp_inputs, "bls": bls_inputs, "tree": tree, "leaves": leaves, "host_proofs": host_proofs,
-        "trusted_sh": trusted_sh, "new_sh": new_sh, "now_ns": now_ns,
+        "secp": secp_inputs, "bls": bls_inputs, "leaves": leaves, "host_proofs": host_proofs,
+        "root": host_root, "trusted_sh": trusted_sh, "new_sh": new_sh, "now_ns": now_ns,
+    })
+
+    # ---------------------------------------------------- 25. the blocksync replay
+    replay_record = replay_phases(dev, log, require, zero_counts, read_counts, {
+        "smi": smi, "chain_id": CHAIN_ID, "vals": vals, "bid": bid, "height": height, "good": good,
+        "cache": cache,
     })
 
     # ---------------------------------------------------- 21. the record
@@ -3257,7 +3663,10 @@ def main() -> int:
         f"{svc_record['service_flood_consensus_p50_ms']:.2f} under the CheckTx flood (mean MEMPOOL batch "
         f"{svc_record['service_flood_mean_batch']:.2f} rows), the service's cost "
         f"{svc_record['service_cost_per_commit_ms']:.2f} ms a commit; service phase "
-        f"{svc_record['service_phase_s']:.1f} s")
+        f"{svc_record['service_phase_s']:.1f} s; blocksync replay of {N_REPLAY_BLOCKS} commits of {V_REPLAY}: "
+        f"{replay_record['replay_ms_per_block']['depth1']:.2f} ms a block at depth 1, "
+        f"{replay_record['replay_ms_per_block']['depth2']:.2f} at depth 2; replay phase "
+        f"{replay_record['replay_phase_s']:.1f} s")
     log(f"[21] {smi}: beside run 9m (ms) — light-client p50 {p50_l:.2f} ({RUN_9M['light-client p50']}), "
         f"uncached p50 {p50_u:.2f} ({RUN_9M['uncached p50']}), set change's first call {change_first_ms:.1f} "
         f"({RUN_9M['set change first call']}), churn build {churn_ms:.1f} beside it "
@@ -3278,7 +3687,7 @@ def main() -> int:
                     "light_10k_p50_ms": p50_light, "proofs_16k_p50_ms": p50_proofs,
                     "multiproof_16k_p50_ms": p50_multi, "multiproof_dedup": dedup,
                     "host_proofs_16k_ms": host_proofs_ms, **secp_record, **bls_record,
-                    **shard_record, **svc_record}))
+                    **shard_record, **svc_record, **replay_record}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

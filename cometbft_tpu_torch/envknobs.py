@@ -29,15 +29,16 @@ def get_str(name: str) -> str:
     return v if v is not None else _DEFAULTS[name]
 
 
-def get_bool(name: str, default: bool) -> bool:
+def get_bool(name: str, default: bool | None = None) -> bool:
     """1 / true / yes / on and 0 / false / no / off (any case); anything
-    else, unset or empty, gives the default."""
+    else, unset or empty, gives the default (the declared one when none
+    is passed)."""
     v = os.environ.get(name, "").strip().lower()
     if v in ("1", "true", "yes", "on"):
         return True
     if v in ("0", "false", "no", "off"):
         return False
-    return default
+    return _DEFAULTS[name] if default is None else default
 
 
 # Ranks of the sharded comb path (cometbft_tpu/utils/envknobs.py:86):
@@ -73,3 +74,13 @@ VERIFYSVC_COLLECT_TIMEOUT_MS = _declare("COMETBFT_TPU_VERIFYSVC_COLLECT_TIMEOUT_
 # The PROOF class's flush deadline (ms) and queue bound (0: the class bound).
 PROOF_DEADLINE_MS = _declare("COMETBFT_TPU_PROOF_DEADLINE_MS", 5)
 PROOF_QUEUE_MAX = _declare("COMETBFT_TPU_PROOF_QUEUE_MAX", 8192)
+
+# The span tracer (utils/tracing.py), with the JAX package's names and
+# defaults (cometbft_tpu/utils/envknobs.py:467-483).
+# Any truthy value records; a path (holding the os separator or ending
+# in .json) also writes a Chrome trace there at interpreter exit.
+TRACE = _declare("COMETBFT_TPU_TRACE", "")
+# The ring's capacity in events (at least 1).
+TRACE_RING = _declare("COMETBFT_TPU_TRACE_RING", 65536)
+# 0 records no trace_id / span_id args on events.
+TRACE_CTX = _declare("COMETBFT_TPU_TRACE_CTX", True)

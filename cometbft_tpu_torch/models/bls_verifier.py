@@ -40,8 +40,11 @@ thresholds, read from its environment variables with its defaults:
 ``COMETBFT_TPU_BLS_VALIDATE_DEVICE_MIN`` (8 new keys),
 ``COMETBFT_TPU_BLS_AGG_DEVICE_MIN`` (256 keys in a unit) and
 ``COMETBFT_TPU_BLS_PUBKEY_CACHE`` (65,536 facts).  Pairings stay on the
-host, in the native core (crypto/bls12381).  The verify service, its
-tracing spans and its metrics hub are not ported.
+host, in the native core (crypto/bls12381).  Spans (utils/tracing.py,
+the JAX names and sites): ``verify.bls_validate`` around a validation on
+the card (``fused`` on the cold aggregate path), ``verify.bls_aggregate``
+around a sum on the card, ``verify.bls_pairing`` around the batch's
+pairing-product check.  The metrics hub is not ported.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from .. import envknobs
 from .._device import resolve_device
 from ..crypto import bls12381 as host_bls
 from ..ops import bls381 as dev_bls
+from ..utils import tracing
 
 PUBKEY_SIZE = host_bls.PUBKEY_SIZE  # 48: compressed G1
 SIG_SIZE = host_bls.SIG_SIZE  # 96: compressed G2
@@ -199,7 +203,11 @@ def _validated_pubkeys(pubs, device, clock: _Clock):
     clock.lap("decode_ms")
     candidates = sum(1 for aff in decoded if aff is not None)
     if device is not None and candidates >= validate_device_min():
-        ok = dev_bls.validate_pubkeys_device(decoded, device=device)
+        with tracing.span(
+            "verify.bls_validate",
+            {"keys": len(decoded), "where": "device"} if tracing.enabled() else None,
+        ):
+            ok = dev_bls.validate_pubkeys_device(decoded, device=device)
         checked = [aff if o else None for aff, o in zip(decoded, ok)]
     else:
         checked = [
@@ -222,7 +230,11 @@ def _aggregate_unit(affs, device):
         # a singleton unit: the sum IS the point (no inversion per row)
         return affs[0]
     if device is not None and len(affs) >= agg_device_min():
-        return dev_bls.aggregate_pubkeys_device(affs, device=device)
+        with tracing.span(
+            "verify.bls_aggregate",
+            {"keys": len(affs), "where": "device"} if tracing.enabled() else None,
+        ):
+            return dev_bls.aggregate_pubkeys_device(affs, device=device)
     acc = (host_bls._FP.one, host_bls._FP.one, host_bls._FP.zero)
     for aff in affs:
         acc = host_bls._jac_add(host_bls._FP, acc, host_bls._from_affine(host_bls._FP, aff))
@@ -256,7 +268,11 @@ def _verify_items(items, device=None, timings: dict | None = None) -> tuple[bool
         # the unit's aggregate
         decoded = [_decode_pub(p) for p in pubs]
         clock.lap("decode_ms")
-        ok, agg = dev_bls.validate_aggregate_device(decoded, device=device)
+        with tracing.span(
+            "verify.bls_validate",
+            {"keys": n, "where": "device", "fused": True} if tracing.enabled() else None,
+        ):
+            ok, agg = dev_bls.validate_aggregate_device(decoded, device=device)
         clock.lap("validate_ms")
         pub_affs = [aff if o else None for aff, o in zip(decoded, ok)]
         for p, aff in zip(pubs, pub_affs):
@@ -301,7 +317,8 @@ def _verify_items(items, device=None, timings: dict | None = None) -> tuple[bool
             acc = host_bls._jac_add(host_bls._FP2, acc, host_bls._from_affine(host_bls._FP2, sig_pts[key]))
         pairs.append((_NEG_G1, host_bls._to_affine(host_bls._FP2, acc)))
         clock.lap("sig_decode_ms")
-        batch_ok = pairing(pairs)
+        with tracing.span("verify.bls_pairing", {"units": len(units)} if tracing.enabled() else None):
+            batch_ok = pairing(pairs)
         if batch_ok:
             return (True, [True] * n)
 

@@ -24,12 +24,26 @@ assembles the reused and fresh rows.  ``ensure_async`` runs that build in
 a background thread on its own CUDA stream while callers verify through
 the uncached kernel (models/verifier.Ed25519BatchVerifier).
 
+``CombBatchVerifier.submit`` returns at once: the payload fill, its
+copy to the card, the launches and the copy of the verdicts back run on
+one process-wide staging thread (``_staging_executor``, the JAX
+:434-452), so a pipelined caller's next block overlaps this one's host
+work and kernels.  One thread issues every stage, so tickets resolve in
+submission order.
+
 Under an active mesh (``COMETBFT_TPU_MESH`` / ``set_active_mesh``, the
 JAX :114-147) every rank of the process group holds only its slice of
 the set's lanes, padded to a multiple of 8 * size, and a verify runs
 parallel/verify.sharded_verify_cached: K1 -> K2 -> K4 on each rank's
 slice and two collectives.  Every rank calls the cache and the verifier
-with the same arguments (SPMD).
+with the same arguments (SPMD).  Every collective of the comb route —
+the stages' and the readiness agreement of verifysvc/client.resolve_mode
+— runs on the staging thread, in the order the caller's thread made the
+calls: a place is taken in the caller's thread (:func:`reserve_stage`)
+and the thread runs the jobs by place, so two threads of one rank can
+never reach the ranks' collectives in two orders.  :func:`reserve_stage`,
+:func:`release_stage`, ``CombBatchVerifier.bind_stage`` and
+:func:`run_in_stage_order` are the whole of that protocol for callers.
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ import hashlib
 import threading
 import time
 from collections import OrderedDict
+from concurrent.futures import Future
 
 import numpy as np
 import torch
@@ -48,6 +63,7 @@ from .._device import resolve_device
 from ..ops import comb, sha2
 from ..parallel import mesh as pmesh
 from ..parallel.verify import sharded_verify_cached
+from ..utils import tracing
 from .verifier import Ed25519BatchVerifier
 
 LAUNCHES = {"assemble_churn": 0}
@@ -323,7 +339,10 @@ class ValsetCombCache:
         consumer = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
         stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         t0 = time.perf_counter()
-        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+        span = tracing.span("verify.table_build", {
+            "backend": "device", "keys": len(lanes), "fresh": len(fresh) if reuse else len(lanes)
+        } if tracing.enabled() else None)
+        with span, torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
             pubs = torch.from_numpy(pub_arr.copy()).to(dev)
             if not reuse:
                 tables, valid = comb.build_a_tables(pubs)
@@ -341,8 +360,9 @@ class ValsetCombCache:
                     torch.tensor(fresh, dtype=torch.int64, device=dev),
                     len(lanes),
                 )
+            if stream is not None:
+                stream.synchronize()  # the span is the completed build
         if stream is not None:
-            stream.synchronize()
             # the entry's tensors come from the build stream's pool and are
             # read on the caller's stream from now on
             for t in (tables, valid, pubs):
@@ -424,6 +444,128 @@ _GLOBAL_CACHE = ValsetCombCache()
 
 def global_cache() -> ValsetCombCache:
     return _GLOBAL_CACHE
+
+
+class StagingLane:
+    """One worker thread that runs jobs strictly by number (the JAX
+    package's one-worker staging executor, with the order made explicit).
+
+    A number is taken with :meth:`reserve` in the thread whose call order
+    the jobs must keep, and the job is handed over later, from any
+    thread, with :meth:`put`; a reserved number that will carry no job
+    is given back with :meth:`release`.  ``put(fn)`` without a number
+    takes the next one, so jobs put by one thread run in the order put
+    (FIFO).  The worker is a daemon, started on the first job."""
+
+    def __init__(self, name: str = "comb-stage"):
+        self._name = name
+        self._cond = threading.Condition()
+        self._next_seq = 0  # the number reserve() hands out next
+        self._next_run = 0  # the number the worker runs next
+        self._jobs: dict[int, tuple] = {}  # number -> (fn, future), (None, None) released
+        self._thread: threading.Thread | None = None
+
+    def reserve(self) -> int:
+        with self._cond:
+            seq = self._next_seq
+            self._next_seq += 1
+            return seq
+
+    def put(self, fn, seq: int | None = None) -> Future:
+        """Queue ``fn`` under ``seq`` (None: the next number); the future
+        carries its result or its exception."""
+        fut: Future = Future()
+        with self._cond:
+            if seq is None:
+                seq = self._next_seq
+                self._next_seq += 1
+            if seq < self._next_run or seq >= self._next_seq or seq in self._jobs:
+                raise ValueError(f"staging number {seq} is spent or was never reserved")
+            self._jobs[seq] = (fn, fut)
+            if self._thread is None:
+                self._thread = threading.Thread(target=self._loop, name=f"{self._name}_0", daemon=True)
+                self._thread.start()
+            self._cond.notify_all()
+        return fut
+
+    def release(self, seq: int | None) -> None:
+        """Give back a reserved number that will carry no job (a demoted,
+        refused or failed request); a spent or filled number is left
+        alone."""
+        if seq is None:
+            return
+        with self._cond:
+            if seq >= self._next_run and seq not in self._jobs:
+                self._jobs[seq] = (None, None)
+                self._cond.notify_all()
+
+    def run(self, fn):
+        """``fn()`` on the worker, after every job numbered before it;
+        its result, or its exception raised here."""
+        return self.put(fn).result()
+
+    def _loop(self) -> None:
+        while True:
+            with self._cond:
+                while self._next_run not in self._jobs:
+                    self._cond.wait()
+                fn, fut = self._jobs.pop(self._next_run)
+                self._next_run += 1
+            if fn is None or not fut.set_running_or_notify_cancel():
+                continue
+            try:
+                fut.set_result(fn())
+            except BaseException as e:  # noqa: BLE001 — the future carries it to the collector
+                fut.set_exception(e)
+
+
+_STAGING = None
+_STAGING_MTX = threading.Lock()
+
+
+def _staging_executor() -> StagingLane:
+    """The process-wide staging thread of submit()
+    (cometbft_tpu/models/comb_verifier.py:434): one worker keeps the
+    copies and launches of every comb batch, and every collective of the
+    comb route, in order, while each submitter returns at once.  Made
+    under a lock: a first-use race (a blocksync thread beside the
+    consensus thread) must not make two workers, which would break the
+    order."""
+    global _STAGING
+    if _STAGING is None:
+        with _STAGING_MTX:
+            if _STAGING is None:
+                _STAGING = StagingLane()
+    return _STAGING
+
+
+def reserve_stage(mode):
+    """A place in the staging order for a request about to be queued in
+    ``mode``, taken in the caller's thread: a token when the request's
+    stage will issue collectives (a comb mode whose entry is sharded over
+    a mesh), else None.  A token is later bound to the request's batch
+    (``CombBatchVerifier.bind_stage``) or given back with
+    :func:`release_stage`; until then every later stage and agreement of
+    the process waits for it."""
+    if mode[0] != "comb" or getattr(mode[1], "mesh", None) is None:
+        return None
+    return _staging_executor().reserve()
+
+
+def release_stage(token) -> None:
+    """Give back a :func:`reserve_stage` token that will carry no stage (a
+    refused, failed or demoted request).  None, and a token already
+    spent or given back, are left alone."""
+    if token is not None:
+        _staging_executor().release(token)
+
+
+def run_in_stage_order(fn):
+    """``fn()`` on the staging thread, after every stage submitted or
+    reserved before it; its result, or its exception raised here.  A
+    collective outside a stage (the readiness agreement of
+    verifysvc/client.resolve_mode) keeps the comb route's order so."""
+    return _staging_executor().run(fn)
 
 
 def _fill_payload(
@@ -531,9 +673,9 @@ class CombBatchVerifier:
     key.  A key outside the set, or a second signature under one key,
     demotes the whole batch to the uncached verifier
     (models/verifier.Ed25519BatchVerifier), which then verifies every
-    item in add() order (cometbft_tpu/models/comb_verifier.py:557-582).
-    add() only appends — all assembly, hashing and transfer happen in one
-    submit()."""
+    item in add() order (cometbft_tpu/models/comb_verifier.py:557-582)
+    with its own submit.  add() only appends: the assembly, hashing and
+    transfers happen on the staging thread after submit()."""
 
     def __init__(self, entry: _CacheEntry):
         self._entry = entry
@@ -541,10 +683,19 @@ class CombBatchVerifier:
         self._row_set: set[int] = set()
         self._items: list[tuple[bytes, bytes, bytes]] = []
         self._fallback: Ed25519BatchVerifier | None = None
+        # the reserve_stage() token of this batch's request (the verify
+        # service takes one under a mesh), or None
+        self._stage_token = None
         self.last_timings: dict[str, float] = {}  # ms per phase, set by verify()
 
     def __len__(self) -> int:
         return len(self._items)
+
+    def bind_stage(self, token) -> None:
+        """Stage this batch at the place of ``token``, a
+        :func:`reserve_stage` token taken in the caller's thread (call
+        order under a mesh)."""
+        self._stage_token = token
 
     def add(self, pub_key: bytes, msg: bytes, sig: bytes) -> None:
         if len(pub_key) != 32 or len(sig) != 64:
@@ -569,50 +720,74 @@ class CombBatchVerifier:
         self._rows.append(row)
 
     def submit(self):
-        """Stage the payload, copy it to the card and enqueue K1 -> K2 ->
-        K4 and the copy of the result back, WITHOUT waiting for the
-        verdict (under a mesh: sharded_verify_cached, whose collectives
-        run here).  Returns an opaque ticket for collect()."""
+        """Hand the batch to the staging thread and return at once: the
+        ticket exists before the payload is filled.  The stage fills a
+        pooled slab, copies it to the card, launches K1 -> K2 -> K4 (under
+        a mesh sharded_verify_cached, whose collectives run there),
+        starts the copy of the verdicts back and records the completion
+        event.  A demoted batch keeps the uncached verifier's own submit,
+        in the caller's thread.  Returns an opaque ticket for collect();
+        tickets resolve in submission order."""
         if self._fallback is not None:
+            release_stage(self._stage_token)
             return self._fallback.submit()
         n = len(self._rows)
         if n == 0:
+            release_stage(self._stage_token)
             return ("sync", (False, []))
         entry = self._entry
         idx = np.asarray(self._rows, dtype=np.int64)
-        timings: dict[str, float] = {}
-        t0 = time.perf_counter()
-        slab = entry.acquire_slab(_payload_width(self._items))
-        try:
-            _fill_payload(slab, self._items, idx)
-            t1 = time.perf_counter()
-            if entry.mesh is not None:
-                # each rank copies its own rows of the slab to its device
-                out = sharded_verify_cached(entry.mesh, entry.tables, entry.valid, entry.pubs,
-                                            slab.tensor, entry.b_tables)
-            else:
-                payload = slab.tensor.to(entry.device, non_blocking=True)
-                out = device_verify(entry.tables, entry.valid, entry.pubs, payload, entry.b_tables)
-            if entry.device.type == "cuda":
-                host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
-                host.copy_(out, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(out.device))
-            else:
-                host, done = out, None
-        except BaseException:
-            # a failed fill or launch must not leak the pooled slab
-            slab.retire()
-            entry.release_slab(slab)
-            raise
-        t2 = time.perf_counter()
-        timings["assembly_ms"] = (t1 - t0) * 1e3
-        timings["h2d_dispatch_ms"] = (t2 - t1) * 1e3
-        return ("dev", (done, host, slab, idx, timings))
+        # the stage reads a snapshot: an add() after submit() leaves the
+        # ticket as it was
+        items = list(self._items)
+
+        def stage():
+            timings: dict[str, float] = {}
+            slab = None
+            try:
+                t0 = time.perf_counter()
+                with tracing.span("verify.slab_fill"):
+                    slab = entry.acquire_slab(_payload_width(items))
+                    _fill_payload(slab, items, idx)
+                t1 = time.perf_counter()
+                with tracing.span("verify.h2d_dispatch"), (
+                        torch.cuda.device(entry.device) if entry.device.type == "cuda"
+                        else contextlib.nullcontext()):
+                    if entry.mesh is not None:
+                        # each rank copies its own rows of the slab to its device
+                        out = sharded_verify_cached(entry.mesh, entry.tables, entry.valid, entry.pubs,
+                                                    slab.tensor, entry.b_tables)
+                    else:
+                        payload = slab.tensor.to(entry.device, non_blocking=True)
+                        out = device_verify(entry.tables, entry.valid, entry.pubs, payload, entry.b_tables)
+                    if entry.device.type == "cuda":
+                        # a fresh pinned buffer a call (its cost: PERF.md)
+                        host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
+                        host.copy_(out, non_blocking=True)
+                        done = torch.cuda.Event()
+                        done.record(torch.cuda.current_stream(entry.device))
+                    else:
+                        host, done = out, None
+                t2 = time.perf_counter()
+            except BaseException:
+                # a failed fill or launch must not leak the pooled slab
+                if slab is not None:
+                    slab.retire()
+                    entry.release_slab(slab)
+                raise
+            timings["assembly_ms"] = (t1 - t0) * 1e3
+            timings["h2d_dispatch_ms"] = (t2 - t1) * 1e3
+            return done, host, slab, timings
+
+        fut = _staging_executor().put(stage, self._stage_token)
+        return ("dev", (fut, idx))
 
     def collect(self, ticket) -> tuple[bool, list[bool]]:
         """Wait for a submit() ticket and unpack (all_ok, per-signature),
-        the bitmap indexed in add() order."""
+        the bitmap indexed in add() order: first the staging thread's
+        pass (``staging_wait_ms``), then the card (``device_wait_ms``);
+        the slab goes back to the entry's pool once the copy that reads
+        it has completed."""
         if self._fallback is not None:
             result = self._fallback.collect(ticket)
             self.last_timings.update(self._fallback.last_timings)
@@ -620,32 +795,43 @@ class CombBatchVerifier:
         kind, payload = ticket
         if kind == "sync":
             return payload
-        done, host, slab, idx, timings = payload
+        fut, idx = payload
         t0 = time.perf_counter()
+        with tracing.span("verify.staging_wait"):
+            done, host, slab, timings = fut.result()
+        t1 = time.perf_counter()
         try:
-            if done is not None:
-                done.synchronize()
+            with tracing.span("verify.device_wait"):
+                if done is not None:
+                    done.synchronize()
         except BaseException:
             slab.retire()
             self._entry.release_slab(slab)
             raise
-        t1 = time.perf_counter()
+        t2 = time.perf_counter()
         self._entry.release_slab(slab)  # the copy has consumed the slab
-        timings["device_wait_ms"] = (t1 - t0) * 1e3
+        timings["staging_wait_ms"] = (t1 - t0) * 1e3
+        timings["device_wait_ms"] = (t2 - t1) * 1e3
         self.last_timings.update(timings)
-        out = host.numpy()
-        all_ok = bool(out[-1])
-        picked = np.unpackbits(out[:-1], count=self._entry.vpad).astype(bool)[idx]
-        return all_ok, picked.tolist()
+        with tracing.span("verify.blame_unpack"):
+            out = host.numpy()
+            all_ok = bool(out[-1])
+            picked = np.unpackbits(out[:-1], count=self._entry.vpad).astype(bool)[idx]
+            return all_ok, picked.tolist()
 
     def verify(self) -> tuple[bool, list[bool]]:
         self.last_timings = {}
         t0 = time.perf_counter()
-        ticket = self.submit()
+        with tracing.span("verify.submit"):
+            ticket = self.submit()
         t1 = time.perf_counter()
         result = self.collect(ticket)
         t2 = time.perf_counter()
-        if ticket[0] == "dev":
+        if ticket[0] == "sync":
+            # no stage ran (an empty batch): host_ms, as the JAX verifier
+            # reports a ticket resolved inside submit()
+            self.last_timings["host_ms"] = (t1 - t0) * 1e3
+        else:
             self.last_timings["submit_ms"] = (t1 - t0) * 1e3
             self.last_timings["kernel_ms"] = (t2 - t1) * 1e3
         return result

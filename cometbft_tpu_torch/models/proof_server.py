@@ -18,10 +18,15 @@ levels above them, and one K9 launch gathers every audit path
 CpuProofProver is the host plane; ProofProver (the JAX package's
 TpuProofProver) answers a tree on the card once at least
 ``proof_device_min()`` queries hit it; it is the verify service's
-MODE_PROOF verifier.  The routing knobs read the JAX package's
-environment variables with its defaults
-(cometbft_tpu/utils/envknobs.py:338-351).  The service's front door
-(``prove``), its metrics and its tracing spans are not ported.
+MODE_PROOF verifier.  :func:`prove` is the callers' front door: it
+registers the tree, submits the queries under PROOF and returns the
+root and the proofs in the caller's order.  The routing knobs read the
+JAX package's environment variables with its defaults
+(cometbft_tpu/utils/envknobs.py:338-351).  Spans (utils/tracing.py, the
+JAX names): ``verify.proof.device_dispatch`` / ``verify.proof.host_route``
+a tree, ``verify.proof.prove`` a front-door call and
+``verify.proof.host_fallback`` its host path.  Its metrics are not
+ported.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from collections import OrderedDict
 from .. import envknobs
 from .._device import resolve_device
 from ..crypto import merkle as cmerkle
+from ..utils import tracing
 
 _INDEX_WIDTH = 8  # query index wire width (big-endian, unsigned)
 
@@ -151,10 +157,17 @@ def _prove_items(items, device):
             continue
         idxs = [idx for _, idx in good]
         if device is not False and len(idxs) >= max(1, proof_device_min()):
-            _, proofs = cmerkle.device_proofs_from_byte_slices(list(leaves), idxs, device=device)
+            with tracing.span(
+                "verify.proof.device_dispatch",
+                {"queries": len(idxs), "total": total} if tracing.enabled() else None,
+            ):
+                _, proofs = cmerkle.device_proofs_from_byte_slices(list(leaves), idxs, device=device)
         else:
-            _, all_proofs = cmerkle.proofs_from_byte_slices(list(leaves))
-            proofs = [all_proofs[i] for i in idxs]
+            with tracing.span(
+                "verify.proof.host_route", {"queries": len(idxs)} if tracing.enabled() else None
+            ):
+                _, all_proofs = cmerkle.proofs_from_byte_slices(list(leaves))
+                proofs = [all_proofs[i] for i in idxs]
         for (pos, _), proof in zip(good, proofs):
             rows[pos] = proof
     ok = bool(rows) and all(r is not None for r in rows)
@@ -208,3 +221,56 @@ class ProofProver:
 
     def verify(self):
         return self.collect(self.submit())
+
+
+# ------------------------------------------------------------ front door
+
+
+def prove(leaves, indices, *, tenant: str | None = None, svc=None, device="cuda"):
+    """Inclusion proofs for ``indices`` of the tree over ``leaves``
+    through the PROOF class of the verify service (``svc``, default the
+    global service of ``device``): the queries merge with every other
+    caller's into one pass a tree, and come back in this caller's index
+    order (cometbft_tpu/models/proof_server.py:237).
+
+    Returns (root, [Proof, ...]).  A refusal (backpressure) or a collect
+    past the service's deadline answers on the host, inline: the same
+    bytes, since the host oracle defines them.  An index out of range,
+    or an empty tree, raises ValueError."""
+    from ..verifysvc import service as S
+
+    leaves = list(leaves)
+    total = len(leaves)
+    if total < 1:
+        raise ValueError("cannot prove against an empty tree")
+    indices = [int(i) for i in indices]
+    for i in indices:
+        if i < 0 or i >= total:
+            raise ValueError(f"proof index {i} out of range for total {total}")
+    digest = register_tree(leaves)
+    items = [encode_query(digest, i) for i in indices]
+    if svc is None:
+        svc = S.global_service(device)
+    rows = None
+    with tracing.span(
+        "verify.proof.prove",
+        {"queries": len(indices), "total": total} if tracing.enabled() else None,
+    ):
+        try:
+            ticket = svc.submit(items, S.Klass.PROOF, S.MODE_PROOF, tenant=tenant)
+            _, rows = ticket.collect(S.collect_timeout_s())
+        except (S.VerifyServiceBackpressure, TimeoutError):
+            with tracing.span("verify.proof.host_fallback"):
+                _, rows = _prove_items(items, device=False)
+    return _assemble(leaves, indices, rows)
+
+
+def _assemble(leaves, indices, rows):
+    """(root, proofs) from a collect's rows; a None row means the tree
+    was evicted between register and dispatch, and then every proof is
+    made again on the host from the leaves held here (the same bytes)."""
+    if rows is None or len(rows) != len(indices) or any(r is None for r in rows):
+        root, all_proofs = cmerkle.proofs_from_byte_slices(leaves)
+        return root, [all_proofs[i] for i in indices]
+    root = rows[0].compute_root_hash() if rows else cmerkle.empty_hash()
+    return root, list(rows)

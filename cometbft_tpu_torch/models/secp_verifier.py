@@ -48,6 +48,7 @@ from ..crypto import secp256k1eth as host_eth
 from ..ops import keccak as kops
 from ..ops import secp256k1 as dev_secp
 from ..ops import sha2
+from ..utils import tracing
 
 COSMOS_PUB = host_secp.PUBKEY_SIZE  # 33: compressed
 COSMOS_SIG = host_secp.SIGNATURE_SIZE  # 64: r || s
@@ -373,14 +374,19 @@ class SecpBatchVerifier:
                    "recover": float(recover)}
         st = stage_batch(self._items, self._dev, hash_dev, hmax, timings)
         t1 = time.perf_counter()
-        ok = _dispatch(st, self._dev, hash_dev, glv, recover)[:n]
-        if self._dev.type == "cuda":
-            host = torch.empty((n,), dtype=torch.bool, pin_memory=True)
-            host.copy_(ok, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(ok.device))
-        else:
-            host, done = ok, None
+        with tracing.span(
+            "verify.secp_batch",
+            {"sigs": n, "where": "device", "hash": "device" if hash_dev else "host"}
+            if tracing.enabled() else None,
+        ):
+            ok = _dispatch(st, self._dev, hash_dev, glv, recover)[:n]
+            if self._dev.type == "cuda":
+                host = torch.empty((n,), dtype=torch.bool, pin_memory=True)
+                host.copy_(ok, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(ok.device))
+            else:
+                host, done = ok, None
         timings["h2d_dispatch_ms"] = (time.perf_counter() - t1) * 1e3
         return ("dev", (done, host, timings))
 

@@ -23,6 +23,7 @@ from .._device import resolve_device
 from ..crypto import ed25519 as host_ed25519
 from ..ops import ed25519 as E
 from ..ops import sha2
+from ..utils import tracing
 
 
 class BatchVerifier(Protocol):
@@ -128,16 +129,18 @@ class Ed25519BatchVerifier:
         if n == 0:
             return ("sync", (False, []))
         t0 = time.perf_counter()
-        a, r, s, blocks, active = stage_batch(self._items, self._dev)
+        with tracing.span("verify.uncached_assemble"):
+            a, r, s, blocks, active = stage_batch(self._items, self._dev)
         t1 = time.perf_counter()
-        ok = E.verify_batch(a, r, s, blocks, active)[:n]
-        if self._dev.type == "cuda":
-            host = torch.empty((n,), dtype=torch.bool, pin_memory=True)
-            host.copy_(ok, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(ok.device))
-        else:
-            host, done = ok, None
+        with tracing.span("verify.h2d_dispatch"):
+            ok = E.verify_batch(a, r, s, blocks, active)[:n]
+            if self._dev.type == "cuda":
+                host = torch.empty((n,), dtype=torch.bool, pin_memory=True)
+                host.copy_(ok, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(ok.device))
+            else:
+                host, done = ok, None
         t2 = time.perf_counter()
         timings = {"assembly_ms": (t1 - t0) * 1e3, "h2d_dispatch_ms": (t2 - t1) * 1e3}
         return ("dev", (done, host, timings))
@@ -149,8 +152,9 @@ class Ed25519BatchVerifier:
             return payload
         done, host, timings = payload
         t0 = time.perf_counter()
-        if done is not None:
-            done.synchronize()
+        with tracing.span("verify.device_wait"):
+            if done is not None:
+                done.synchronize()
         timings["device_wait_ms"] = (time.perf_counter() - t0) * 1e3
         self.last_timings.update(timings)
         res = host.tolist()

@@ -383,11 +383,15 @@ def submit_verify_commit_light(
     """Asynchronous verify_commit_light (reactor.go:547's hot path,
     pipelined): run every host-side phase that can raise immediately —
     basic checks, batch assembly, power tally — and enqueue the device
-    work WITHOUT waiting for its verdict (CombBatchVerifier's
-    submit()/collect() seam), so a pipelined caller overlaps the next
-    block's host work with this one's kernels.  Returns None when the
-    commit doesn't take the batch path at all (small set, heterogeneous
-    keys): the caller must then run verify_commit_light synchronously."""
+    work WITHOUT waiting for its verdict.  The request goes to the verify
+    service under ``klass`` (the blocksync replay passes
+    Klass.BLOCKSYNC, as the JAX reactor does); a comb batch's submit
+    there only hands it to the staging thread, which fills the payload,
+    copies it and launches the kernels, so a pipelined caller overlaps
+    the next block's host work with this one's fill and kernels
+    (blocksync/replay.verify_ahead).  Returns None when the commit
+    doesn't take the batch path at all (small set, heterogeneous keys):
+    the caller must then run verify_commit_light synchronously."""
     device = resolve_device(device)
     _verify_basic_vals_and_commit(vals, commit, height, block_id)
     if not should_batch_verify(vals, commit):

@@ -3,6 +3,7 @@ check of the port (service.py has the design).
 
 Clients:
   * consensus VerifyCommit        — Klass.CONSENSUS (types/validation.py)
+  * blocksync replay              — Klass.BLOCKSYNC (blocksync/replay.py)
   * light client                  — Klass.BACKGROUND (light/)
   * mempool CheckTx               — Klass.MEMPOOL (checktx.py)
   * proof serving                 — Klass.PROOF (models/proof_server.py)

@@ -11,12 +11,14 @@ service's threads.
 
 A refused submit (:class:`~.service.VerifyServiceBackpressure`) is
 verified inline on the host, in the caller's thread, through the mode's
-host verifier: the one host path, an admission decision.  An error of
-the batch, or a collect that outlasts ``collect_timeout_s()``, reaches
-the caller as raised.
+host verifier (span ``verify.svc_fallback``): the one host path, an
+admission decision.  An error of the batch, or a collect that outlasts
+``collect_timeout_s()``, reaches the caller as raised.
 """
 
 from __future__ import annotations
+
+from ..utils import tracing
 
 from .service import (
     MODE_BLS,
@@ -50,7 +52,10 @@ def resolve_mode(pubkeys: list[bytes] | None, key_type: str = "ed25519", *, devi
     calls with the same arguments and the comb route ends in
     collectives, so the ranks agree first: at the background-build sizes
     one all_reduce(MIN) of "my tables are ready" decides, and every rank
-    verifies uncached until all of them hold their slice."""
+    verifies uncached until all of them hold their slice.  The agreement
+    runs on the comb path's staging thread, after every comb stage this
+    thread submitted before it, so a rank's collectives keep one order
+    however deep its caller pipelines."""
     from .._device import resolve_device
     from ..crypto import batch as crypto_batch
 
@@ -61,7 +66,7 @@ def resolve_mode(pubkeys: list[bytes] | None, key_type: str = "ed25519", *, devi
         return MODE_SECP, dev
     if pubkeys is None or len(pubkeys) < crypto_batch.comb_min():
         return MODE_PLAIN, dev
-    from ..models.comb_verifier import global_cache, placement
+    from ..models.comb_verifier import global_cache, placement, run_in_stage_order
     from ..parallel.mesh import all_true
 
     mesh, dev = placement(dev)
@@ -70,7 +75,8 @@ def resolve_mode(pubkeys: list[bytes] | None, key_type: str = "ed25519", *, devi
         entry = cache.ensure_async(pubkeys, device=dev)
         ready = entry is not None
         if mesh is not None:
-            ready = all_true(mesh, ready)  # one route for every rank
+            # one route for every rank, agreed on the collective thread
+            ready = run_in_stage_order(lambda: all_true(mesh, ready))
         if not ready:
             return MODE_PLAIN, dev  # tables still building
         return ("comb", entry), dev
@@ -102,6 +108,9 @@ class ServiceBatchVerifier:
         self._tenant = tenant if tenant is not None else default_tenant()
         self._items: list[tuple[bytes, bytes, bytes]] = []
         self.last_timings: dict[str, float] = {}
+        # this batch's span context, made at submit() (or the caller's):
+        # the service's threads and the host path run under it
+        self._ctx = None
 
     def __len__(self) -> int:
         return len(self._items)
@@ -147,19 +156,29 @@ class ServiceBatchVerifier:
             self._svc = global_service()
         return self._svc
 
-    def _host_fallback(self) -> tuple[bool, list[bool]]:
+    def _host_fallback(self, span_name: str) -> tuple[bool, list[bool]]:
         """Our items on the mode's host verifier, in add() order."""
-        return _host_verify_items(self._items, self._mode)
+        with tracing.context_scope(self._ctx), tracing.span(
+            span_name,
+            {"class": self._klass.label, "sigs": len(self._items)} if tracing.enabled() else None,
+        ):
+            return _host_verify_items(self._items, self._mode)
 
     def submit(self):
         """Enqueue with the service; returns an opaque ticket for
         collect().  A refused submit is verified here, on the host."""
         if not self._items:
             return ("sync", (False, []))
+        if tracing.propagation_enabled() and self._ctx is None:
+            # the root of this batch's trace, unless the caller runs
+            # under one already
+            self._ctx = tracing.current_context() or tracing.new_context()
         try:
-            return ("svc", self._service().submit(list(self._items), self._klass, self._mode, tenant=self._tenant))
+            with tracing.context_scope(self._ctx):
+                return ("svc", self._service().submit(list(self._items), self._klass, self._mode,
+                                                      tenant=self._tenant))
         except VerifyServiceBackpressure:
-            return ("sync", self._host_fallback())
+            return ("sync", self._host_fallback("verify.svc_fallback"))
 
     def collect(self, ticket) -> tuple[bool, list[bool]]:
         """(all_ok, per-signature) in add() order.  Waits at most
@@ -172,7 +191,7 @@ class ServiceBatchVerifier:
         except VerifyServiceBackpressure:
             # stop() failed the queued ticket: the same contract as a
             # refused submit
-            return self._host_fallback()
+            return self._host_fallback("verify.svc_fallback")
         self.last_timings = dict(payload.timings)
         return result
 

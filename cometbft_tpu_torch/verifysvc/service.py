@@ -37,19 +37,33 @@ order however its batch was merged.
 Threads (daemons, started on the first submit; :meth:`stop` ends them
 and fails every ticket still waiting): the scheduler forms batches and
 binds each to a verifier on the service's device; a host worker takes
-the batches in class order from a priority queue and runs their
-submit(), the staging and the launches; a collector waits for their
-completion events and settles the tickets.  Every submit runs on the
-host worker, where the JAX service keeps the comb submit on its
-scheduler (its ``_submit_is_offloaded``): the port's comb verifier
-fills its payload inline, and on the scheduler that fill would hold up
-the next consensus dispatch.  A dispatch, submit or collect error fails
-the batch's tickets with that error; nothing is verified again on the
-host.
+the batches whose submit() does real work in class order from a
+priority queue; a collector waits for their completion events and
+settles the tickets.  Which submits leave the scheduler is the JAX
+service's rule (``_submit_is_offloaded``): a comb batch that was not
+demoted submits on the scheduler, since its submit() only hands the
+batch to the comb path's staging thread (models/comb_verifier.py), and
+every other batch (uncached, demoted comb, secp, BLS, proof) goes to the
+host worker, where a queued consensus batch overtakes lower classes.
+The JAX rule's third arm, a comb batch below its host-route width, has
+no counterpart: the port sends every batch to the card (ROADMAP C).  A
+dispatch, submit or collect error fails the batch's tickets with that
+error; nothing is verified again on the host.
 
-Left out of the port so far (ROADMAP A): the failover watchdog and its
-host re-verification, the remote plane, and the metrics, tracing and
-flight-recorder hooks.
+A request takes its place in the comb route's collective order here, in
+the submitter's thread (models/comb_verifier.reserve_stage: a token
+under a mesh, else None), so its collectives keep the submitter's call
+order beside the readiness agreements of verifysvc/client.resolve_mode.
+A demoted batch gives its place back at dispatch, and a request that
+settles without a stage when it settles.
+
+Spans (utils/tracing.py, the JAX names): ``verify.sched.dispatch`` around
+a batch's binding (and a comb batch's submit), ``verify.sched.hostwork``
+around a host-worker submit, ``verify.sched.collect`` around the wait
+and the settle, and the instant ``verify.sched.reject`` on a refusal;
+each under the submitter's span context.  Left out of the port so far
+(ROADMAP A): the failover watchdog and its host re-verification, the
+remote plane, the metrics and the flight recorder.
 """
 
 from __future__ import annotations
@@ -65,6 +79,8 @@ import torch
 
 from .. import envknobs
 from .._device import resolve_device
+from ..models.comb_verifier import release_stage, reserve_stage
+from ..utils import tracing
 
 
 class Klass(IntEnum):
@@ -238,7 +254,7 @@ class Ticket:
 
 
 class _Request:
-    __slots__ = ("items", "klass", "mode", "ticket", "enq", "tenant", "dispatched")
+    __slots__ = ("items", "klass", "mode", "ticket", "enq", "tenant", "dispatched", "ctx", "stage")
 
     def __init__(self, items, klass: Klass, mode, tenant: str = DEFAULT_TENANT):
         self.items = items
@@ -248,6 +264,20 @@ class _Request:
         self.ticket = Ticket()
         self.enq = time.monotonic()
         self.dispatched = None  # set when its batch leaves the queue
+        # the submitter's span context: the service's threads install it
+        # around their spans, so every hop of the request shares its
+        # trace_id
+        self.ctx = tracing.current_context() if tracing.propagation_enabled() else None
+        self.stage = reserve_stage(mode)  # a place in the comb route's collective order, or None
+
+
+def _batch_ctx(batch: list[_Request]):
+    """The span context a batch's spans run under: its first member's
+    that has one (a merged batch's members joined one dispatch)."""
+    for r in batch:
+        if r.ctx is not None:
+            return r.ctx
+    return None
 
 
 def _parse_weights(spec: str) -> dict[Klass, int]:
@@ -516,19 +546,27 @@ class VerifyService:
                 self._rejected[klass.label] += 1
             else:
                 req = _Request(items, klass, mode, tenant=tenant)
-                req.ticket._on_settle = functools.partial(self._release_outstanding, klass, tenant, n)
+                req.ticket._on_settle = functools.partial(self._release_outstanding, klass, tenant, n,
+                                                          req.stage)
                 self._queues[klass].setdefault(tenant, []).append(req)
                 self._queued_sigs[klass][tenant] = ten_q + n
                 self._class_sigs[klass] = class_q + n
                 self._cond.notify()
         if scope is not None:
             self._tally_tenant(tenant, "rejected")
+            tracing.instant(
+                "verify.sched.reject",
+                {"class": klass.label, "tenant": tenant, "scope": scope, "queued": queued, "sigs": n}
+                if tracing.enabled() else None,
+            )
             raise VerifyServiceBackpressure(klass, queued, limit, tenant=tenant, scope=scope)
         return req.ticket
 
-    def _release_outstanding(self, klass: Klass, tenant: str, n: int) -> None:
-        """Return ``n`` signatures of ``tenant``'s quota (the ticket's
-        settle hook, once a request whichever path settles it)."""
+    def _release_outstanding(self, klass: Klass, tenant: str, n: int, stage=None) -> None:
+        """Return ``n`` signatures of ``tenant``'s quota, and a staging
+        place the request never used (the ticket's settle hook, once a
+        request whichever path settles it)."""
+        release_stage(stage)
         with self._out_mtx:
             d = self._outstanding_sigs[klass]
             left = d.get(tenant, 0) - n
@@ -715,9 +753,26 @@ class VerifyService:
 
         return Ed25519BatchVerifier(device=self.device)
 
+    @staticmethod
+    def _submit_is_offloaded(bv) -> bool:
+        """Whether bv.submit() runs on the host worker instead of the
+        scheduler thread (cometbft_tpu/verifysvc/service.py:1193).  Only
+        a comb batch's submit is cheap: it hands the fill, the copies and
+        the launches to the staging thread.  Every other verifier does its
+        work inside submit() (the uncached and secp assembly, the BLS
+        decompression, the proof trees, a demoted comb batch's uncached
+        verify), which on the scheduler would hold up the next consensus
+        dispatch.  The JAX rule's arm for a comb batch below
+        ``_device_batch_min`` (a host route by width) has no counterpart
+        here."""
+        if getattr(bv, "_entry", None) is None:  # not a comb verifier
+            return True
+        return getattr(bv, "_fallback", None) is not None  # a demoted comb batch
+
     def _dispatch(self, klass: Klass, batch: list[_Request]) -> None:
-        """Bind the batch to a verifier and queue it for the host worker
-        (every submit runs there; module docstring)."""
+        """Bind the batch to a verifier; submit a comb batch here and
+        hand its ticket to the collector, queue any other for the host
+        worker (``_submit_is_offloaded``)."""
         nsigs = sum(len(r.items) for r in batch)
         now = time.monotonic()
         for r in batch:
@@ -726,16 +781,37 @@ class VerifyService:
         self._dispatched_sigs[klass.label] += nsigs
         self._tally_tenant(batch[0].tenant, "dispatched_batches")
         self._tally_tenant(batch[0].tenant, "dispatched_sigs", nsigs)
-        try:
-            bv = self._make_verifier(batch[0].mode)
-            for r in batch:
-                for pub, msg, sig in r.items:
-                    bv.add(pub, msg, sig)
-        except BaseException as e:  # noqa: BLE001 — fail the tickets, keep scheduling
-            self._fail_batch(batch, e)
-            return
-        self._track_inflight(batch, "host")
-        self._hostq.put((int(klass), next(self._hostseq), (bv, batch)))
+        labels = (
+            {"class": klass.label, "tenant": batch[0].tenant, "sigs": nsigs, "requests": len(batch)}
+            if tracing.enabled() else None
+        )
+        with tracing.context_scope(_batch_ctx(batch)), tracing.span("verify.sched.dispatch", labels):
+            t0 = time.perf_counter()
+            try:
+                bv = self._make_verifier(batch[0].mode)
+                bind = getattr(bv, "bind_stage", None)
+                if bind is not None:
+                    bind(batch[0].stage)  # comb requests go alone
+                for r in batch:
+                    for pub, msg, sig in r.items:
+                        bv.add(pub, msg, sig)
+                if self._submit_is_offloaded(bv):
+                    # a demoted comb batch stages nothing: its place goes
+                    # back now, not when the host worker reaches it
+                    release_stage(batch[0].stage)
+                    self._track_inflight(batch, "host")
+                    self._hostq.put((int(klass), next(self._hostseq), (bv, batch)))
+                    return
+                ticket = bv.submit()  # the comb staging seam: returns at once
+            except BaseException as e:  # noqa: BLE001 — fail the tickets, keep scheduling
+                self._fail_batch(batch, e)
+                return
+            submit_ms = (time.perf_counter() - t0) * 1e3
+        self._track_inflight(batch, "device")
+        if ticket[0] == "sync":
+            self._settle(bv, ticket, batch, submit_ms)
+        else:
+            self._collectq.put((bv, ticket, batch, submit_ms))
 
     def _fail_batch(self, batch: list[_Request], exc: BaseException) -> None:
         """A dispatch, submit or collect error: the tickets fail with it
@@ -759,13 +835,17 @@ class VerifyService:
             if payload is None:
                 return
             bv, batch = payload
-            t0 = time.perf_counter()
-            try:
-                ticket = bv.submit()
-            except BaseException as e:  # noqa: BLE001 — fail the tickets, keep serving
-                self._fail_batch(batch, e)
-                continue
-            submit_ms = (time.perf_counter() - t0) * 1e3
+            labels = (
+                {"class": batch[0].klass.label, "requests": len(batch)} if tracing.enabled() else None
+            )
+            with tracing.context_scope(_batch_ctx(batch)), tracing.span("verify.sched.hostwork", labels):
+                t0 = time.perf_counter()
+                try:
+                    ticket = bv.submit()
+                except BaseException as e:  # noqa: BLE001 — fail the tickets, keep serving
+                    self._fail_batch(batch, e)
+                    continue
+                submit_ms = (time.perf_counter() - t0) * 1e3
             if ticket[0] == "sync":
                 self._settle(bv, ticket, batch, submit_ms)
             else:
@@ -790,8 +870,10 @@ class VerifyService:
 
     def _settle(self, bv, ticket, batch: list[_Request], submit_ms: float) -> None:
         self._relabel_inflight(batch, "collect")
+        labels = {"class": batch[0].klass.label, "requests": len(batch)} if tracing.enabled() else None
         try:
-            self._settle_inner(bv, ticket, batch, submit_ms)
+            with tracing.context_scope(_batch_ctx(batch)), tracing.span("verify.sched.collect", labels):
+                self._settle_inner(bv, ticket, batch, submit_ms)
         finally:
             self._untrack_inflight(batch)
 

@@ -1348,3 +1348,133 @@ def test_service_proof_requests_on_the_card(dev, svc_stop):
     n = svc.stats()["dispatched_batches"]["proof"] - stats0["dispatched_batches"]["proof"]
     assert not bad and 1 <= n <= len(reqs)
     assert _delta(before) == {"sha256_blocks": n, "merkle_tree": n, "merkle_gather": n}
+
+
+def _stream_case(n, seed, blocks=6):
+    """n keys and ``blocks`` commits of theirs: block 2 with a flipped
+    message byte at row 3, block 4 (when there is one) with only the first
+    half of the rows and block 5 with a foreign key appended."""
+    from cometbft_tpu_torch.crypto import ed25519 as host
+
+    rng = np.random.default_rng(seed)
+    keys = [host.PrivKey.from_seed(rng.bytes(32)) for _ in range(n + 1)]
+    pubs = [k.pub_key().data for k in keys]
+    commits = []
+    for b in range(blocks):
+        items = []
+        for i in range(n):
+            m = b"block-%d-row-%d-" % (b, i) + rng.bytes(int(rng.integers(60, 70)))
+            s = keys[i].sign(m)
+            items.append((pubs[i], m + (b"!" if (b, i) == (2, 3) else b""), s))
+        commits.append(items)
+    if blocks > 4:
+        commits[4] = commits[4][: n // 2]
+    if blocks > 5:
+        commits[5] = commits[5] + [(pubs[n], b"alien", keys[n].sign(b"alien"))]
+    return pubs[:n], commits
+
+
+def test_staging_thread_on_the_card(dev, svc_stop):
+    """Comb batches on the card submitted from four threads: every
+    submit returns before its fill, the fills, copies and launches run on
+    the staging thread (K1, K2, K4 once a batch), every verdict is the
+    host oracle's, and the slabs go back to the entry's pool."""
+    import threading
+
+    from cometbft_tpu_torch.models import comb_verifier as cv
+    from cometbft_tpu_torch.models.verifier import CpuEd25519BatchVerifier
+    from cometbft_tpu_torch.ops import comb, sha2
+
+    pubs, commits = _stream_case(300, 41, blocks=4)
+    entry = cv.ValsetCombCache().ensure(pubs, device=dev)
+    where, out = [], {}
+    real_fill = cv._fill_payload
+
+    def spy(slab, items, rows):
+        where.append(threading.current_thread().name)
+        return real_fill(slab, items, rows)
+
+    def run(b):
+        bv = cv.CombBatchVerifier(entry)
+        for it in commits[b]:
+            bv.add(*it)
+        ticket = bv.submit()
+        out[b] = bv.collect(ticket)
+
+    before = (sha2.LAUNCHES["parse_verify_payload"], comb.LAUNCHES["verify_cached"])
+    cv._fill_payload = spy
+    try:
+        threads = [threading.Thread(target=run, args=(b,)) for b in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    finally:
+        cv._fill_payload = real_fill
+    for b in range(4):
+        host = CpuEd25519BatchVerifier()
+        host._items = list(commits[b])
+        assert out[b] == host.verify()
+    assert set(where) == {"comb-stage_0"} and len(where) == 4
+    assert (sha2.LAUNCHES["parse_verify_payload"] - before[0], comb.LAUNCHES["verify_cached"] - before[1]) == (4, 4)
+    assert 1 <= len(entry._slabs[cv._payload_width(commits[0])]) <= 2
+
+
+def test_staging_thread_launches_on_a_second_card(dev, svc_stop):
+    """A comb entry on cuda:1 while cuda:0 is current: the staging
+    thread's copy, launches and event go to cuda:1, verdicts equal the
+    host's.  Needs two cards; skips on one."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the stage runs on cuda:1 while cuda:0 is current")
+    from cometbft_tpu_torch.models import comb_verifier as cv
+    from cometbft_tpu_torch.models.verifier import CpuEd25519BatchVerifier
+
+    torch.cuda.set_device(0)
+    pubs, commits = _stream_case(70, 43, blocks=3)
+    entry = cv.ValsetCombCache().ensure(pubs, device=torch.device("cuda", 1))
+    assert entry.device == torch.device("cuda", 1)
+    for items in commits:
+        bv = cv.CombBatchVerifier(entry)
+        for it in items:
+            bv.add(*it)
+        host = CpuEd25519BatchVerifier()
+        host._items = list(items)
+        assert bv.verify() == host.verify()
+    assert torch.cuda.current_device() == 0
+
+
+def test_commit_stream_depth_2_equals_depth_1_on_the_card(dev, svc_stop):
+    """CommitStreamVerifier over six commits of a 512-validator set (a
+    tampered row, a half commit, a foreign key's demotion) at depth 1 and
+    2: bit for bit the same verdicts, equal to the host oracle's."""
+    from cometbft_tpu_torch.blocksync import CommitStreamVerifier
+    from cometbft_tpu_torch.models import comb_verifier as cv
+    from cometbft_tpu_torch.models.verifier import CpuEd25519BatchVerifier
+
+    pubs, commits = _stream_case(512, 47)
+    entry = cv.ValsetCombCache().ensure(pubs, device=dev)
+    runs = {d: list(CommitStreamVerifier(entry, depth=d).run(commits)) for d in (1, 2)}
+    want = []
+    for items in commits:
+        host = CpuEd25519BatchVerifier()
+        host._items = list(items)
+        want.append(host.verify())
+    assert runs[1] == runs[2] == want
+    assert not want[2][0] and want[2][1].count(False) == 1
+
+
+def test_prove_on_the_card(dev, svc_stop):
+    """models/proof_server.prove over a 1,000-leaf tree through the
+    global service of the card: 200 queries (K7 -> K8 -> K9), the root
+    and every proof equal to proofs_from_byte_slices's."""
+    from cometbft_tpu_torch.crypto import merkle as cm
+    from cometbft_tpu_torch.models import proof_server
+
+    rng = np.random.default_rng(53)
+    leaves = [rng.bytes(64) for _ in range(1000)]
+    idx = rng.permutation(1000)[:200].tolist()
+    root, proofs = cm.proofs_from_byte_slices(leaves)
+    before = _counts()
+    got_root, got = proof_server.prove(leaves, idx, device=dev)
+    assert got_root == root and got == [proofs[i] for i in idx]
+    assert _delta(before) == {"sha256_blocks": 1, "merkle_tree": 1, "merkle_gather": 1}

@@ -241,8 +241,135 @@ def run_deadlock_guard(mesh, case: dict) -> dict:
                 os.environ[k] = v
 
 
+PIPE_VALS = 2048  # COMETBFT_TPU_COMB_ASYNC_MIN: the readiness agreement's size
+PIPE_BLOCKS = 8
+PIPE_CHANGE = 4  # the first height of the changed set
+PIPE_CHURN = 16  # keys replaced at the change
+PIPE_TAMPER = (6, 77)  # (block, validator row) whose signature has a flipped byte
+PIPE_DEPTH = 2
+PIPE_SLOW_S = 1.5  # rank 1's host lags this long after each submit
+PIPE_CHAIN_ID = "pipelined-replay"
+PIPE_FOREIGN = (1, 300)  # (block, row) of the commit stream whose key is outside the set
+
+
+def pipeline_chain(case: dict) -> list:
+    """The replayed chain, the same on every rank: (vals, block_id,
+    height, commit) a block, signed by a 2,048-validator set that changes
+    PIPE_CHURN keys at block PIPE_CHANGE; block PIPE_TAMPER[0] carries a
+    signature with a flipped byte at row PIPE_TAMPER[1]."""
+    from cometbft_tpu_torch import types as T
+    from cometbft_tpu_torch.crypto import ed25519 as host
+    from cometbft_tpu_torch.wire.canonical import PRECOMMIT_TYPE, Timestamp
+
+    rng = np.random.default_rng(case["seed"])
+    keys = [host.PrivKey.from_seed(rng.bytes(32)) for _ in range(PIPE_VALS + PIPE_CHURN)]
+    by_addr = {k.pub_key().address(): k for k in keys}
+    set_a = keys[:PIPE_VALS]
+    set_b = list(set_a)
+    for j, i in enumerate(rng.choice(PIPE_VALS, PIPE_CHURN, replace=False).tolist()):
+        set_b[i] = keys[PIPE_VALS + j]
+    sets = [T.ValidatorSet([T.Validator(k.pub_key(), 10) for k in s]) for s in (set_a, set_b)]
+    chain = []
+    for b in range(PIPE_BLOCKS):
+        vals = sets[b >= PIPE_CHANGE]
+        height = 100 + b
+        bid = T.BlockID(hash=rng.bytes(32), part_set_header=T.PartSetHeader(total=1, hash=rng.bytes(32)))
+        sigs = []
+        for i, v in enumerate(vals.validators):
+            vote = T.Vote(type=PRECOMMIT_TYPE, height=height, round=0, block_id=bid,
+                          timestamp=Timestamp(seconds=1_700_000_000 + height, nanos=i),
+                          validator_address=v.address, validator_index=i)
+            sig = by_addr[v.address].sign(vote.sign_bytes(PIPE_CHAIN_ID))
+            if (b, i) == PIPE_TAMPER:
+                sig = sig[:40] + bytes([sig[40] ^ 1]) + sig[41:]
+            vote.signature = sig
+            sigs.append(vote.to_commit_sig())
+        chain.append((vals, bid, height, T.Commit(height=height, round=0, block_id=bid, signatures=sigs)))
+    return chain
+
+
+def run_pipeline(mesh, case: dict) -> dict:
+    """The blocksync verify-ahead at depth PIPE_DEPTH under the mesh:
+    types/validation.submit_verify_commit_light a height, BLOCKSYNC, up
+    to PIPE_DEPTH heights in flight, over pipeline_chain (the first set's
+    tables warm, the second built in the background after the change).
+    Rank 1's host lags after each submit, so without one collective
+    thread a rank its next readiness agreement and its last stage's
+    collectives would reach the group in the other order than rank 0's.
+    Then blocksync/replay.CommitStreamVerifier over the first set's
+    commits at the same depth, block PIPE_FOREIGN[0] carrying a foreign
+    key.  Every collective is logged with the thread that issued it."""
+    from collections import deque
+
+    from cometbft_tpu_torch.blocksync import CommitStreamVerifier
+    from cometbft_tpu_torch.crypto import ed25519 as host
+    from cometbft_tpu_torch.models import comb_verifier as cv
+    from cometbft_tpu_torch.types import validation
+    from cometbft_tpu_torch.verifysvc import Klass
+
+    chain = pipeline_chain(case)
+    threads: list[str] = []
+    real = {name: getattr(dist, name) for name in ("all_reduce", "all_gather")}
+
+    def logged(name):
+        def call(*a, **kw):
+            threads.append(threading.current_thread().name)
+            return real[name](*a, **kw)
+        return call
+
+    cv.set_active_mesh(mesh)
+    cache = cv.ValsetCombCache()
+    try:
+        cache.ensure(chain[0][0].pub_keys_bytes(), device=mesh.device)
+        for name in real:
+            setattr(dist, name, logged(name))
+        inflight, blocks = deque(), []
+
+        def drain():
+            height, pending = inflight.popleft()
+            route = "cache" if pending._bv is None else pending._bv.mode[0]
+            try:
+                pending.collect()
+                blocks.append((height, route, None))
+            except validation.CommitVerificationError as e:
+                blocks.append((height, route, str(e).split(":")[0]))
+
+        for vals, bid, height, commit in chain:
+            inflight.append((height, validation.submit_verify_commit_light(
+                PIPE_CHAIN_ID, vals, bid, height, commit, klass=Klass.BLOCKSYNC, device=mesh.device,
+                comb_cache=cache)))
+            if mesh.rank == 1:
+                time.sleep(PIPE_SLOW_S)
+            while len(inflight) > PIPE_DEPTH:
+                drain()
+        while inflight:
+            drain()
+        cache.join_async(GROUP_TIMEOUT_S)
+        # then the first set's commits as a raw stream at the same depth,
+        # one row's key foreign to the set (signing another message): that
+        # block is demoted to the uncached verifier and stages nothing
+        n_before = len(threads)
+        stream = []
+        for vals, _, _, commit in chain[:PIPE_CHANGE]:
+            sb = commit.vote_sign_bytes_fn(PIPE_CHAIN_ID)
+            stream.append([(v.pub_key.bytes(), sb(i), commit.signatures[i].signature)
+                           for i, v in enumerate(vals.validators)])
+        alien = host.PrivKey.from_seed(bytes([7]) * 32)
+        b, row = PIPE_FOREIGN
+        stream[b][row] = (alien.pub_key().data, stream[b][row][1], alien.sign(b"another message"))
+        entry = cache.ensure(chain[0][0].pub_keys_bytes(), device=mesh.device)
+        verdicts = [(ok, [i for i, v in enumerate(per) if not v])
+                    for ok, per in CommitStreamVerifier(entry, depth=PIPE_DEPTH).run(stream)]
+        return {"blocks": blocks, "collective_threads": threads, "stream": verdicts,
+                "stream_collectives": len(threads) - n_before}
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+        cv.set_active_mesh(None)
+
+
 TASKS = {"entries": run_entries, "merkle": run_merkle, "comb": run_comb,
-         "deadlock_guard": run_deadlock_guard}
+         "deadlock_guard": run_deadlock_guard, "pipeline": run_pipeline}
 
 
 def init_group(rank: int, world: int, store: str) -> None:
