@@ -10,8 +10,9 @@ CheckTx batch of the Cosmos, Ethereum and ecrecover wire shapes, and the
 BLS12-381 lane on a 10,000-validator aggregate commit, the sharded
 verify plane over torch.distributed at world 1 and 4, the verify
 service under load, and the blocksync replay of 5,000-validator commits
-through the comb path's staging thread — on one NVIDIA card, holds each
-kernel against its plain PyTorch version, and prints the card's
+through the comb path's staging thread, and the service's failover
+watchdog tripping to the host and restoring — on one NVIDIA card, holds
+each kernel against its plain PyTorch version, and prints the card's
 numbers.  Every path that
 crypto/batch.create_batch_verifier serves (verify_commit, the light
 client, the uncached, secp and BLS verifiers) reaches its kernels
@@ -121,7 +122,7 @@ it and read just after it.
      fails);
  21. one JSON line with every kernel (rows 23-26 of the kernel table too:
      the sharded entries, their per-rank kernels' bounds summed), then the
-     contract line; it runs after phases 22-25:
+     contract line; it runs after phases 22-26:
  22. the sharded plane at world 1 (a one-rank NCCL group in this
      process, the comb path bound with set_active_mesh): verify_commit
      over phase 2's set on the good and the planted commit,
@@ -167,7 +168,27 @@ it and read just after it.
      path's launches; (d) with tracing on, Chrome traces of (a) at depth
      2 and of phase 4's verify_commit under build/, the ms a call of
      every verify.* span and the share of the wall in which the staging
-     thread's slab fill overlaps the caller's own work.
+     thread's slab fill overlaps the caller's own work;
+ 26. the verify service's failover, on the card's global service: (a)
+     phase 4's verify_commit with failover on (the watchdog ticking, the
+     health sentinel started) and off, in turns, their p50s; (b)
+     fail_dispatch on phase 7's commit with one flipped signature:
+     verified again on the host, the card's blame, one dispatch-error
+     re-verify, no trip; (d) slow_collect past a 300-ms client deadline:
+     the stall reported twice (the commit and a CheckTx), one artifact,
+     the verdicts from the host path; (c) wedge_device on phase 7's
+     commit under a 2-s batch deadline: the trip and its time, the
+     stranded batch verified on the host in add() order, one forensics
+     artifact under build/failover/, then the wedge cleared, the real
+     subprocess probe's probation and the restore (the probes' latencies,
+     the time to restore), and the 10,000-row commit through K1, K2 and
+     K4 once each with phase 2's verdicts; the hub's exposition of the
+     verify and health series on a line of its own.
+
+Every phase runs with the service's failover on (COMETBFT_TPU_FAILOVER's
+default), and after each one but 26 the run fails unless the service
+has made no trip and no host re-verify: a kernel that failed on the card
+cannot pass as verdicts from the host.
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
 """
@@ -1252,26 +1273,49 @@ def bls_phases(dev, rng, log, require, zero_counts, read_counts, cuda_ms, max_ab
     import torch_bls_corpus as BC
 
     edge_cases = [("mixed", n) for n in BC.EDGE_SIZES] + [("small", 33), ("prefail", 9)]
-    for mode, n_e in edge_cases:
-        b_e = BC.batch(n_e, SEED + n_e, mode)
-        Xe, Ye, ve = (torch.from_numpy(t_).to(dev) for t_ in BC.pack(b_e))
+    # Depth cut, for the run's time limit: the plain K15 once over
+    # every edge batch's rows together (its verdicts are row by row),
+    # where it ran once a batch (~4-5 s a call at any small N: nine calls
+    # of the lane's 150-191 s); each batch's triple is held against the
+    # host sum of its valid rows.  The two smallest batches, where the
+    # tile and finishing stages split most unevenly, keep a plain call of
+    # their own and their triple word for word; so does the 10,000-row
+    # parity below.
+    word_for_word = {("small", 33), ("prefail", 9)}
+    edge_b = [BC.batch(n_e, SEED + n_e, mode) for mode, n_e in edge_cases]
+    edge_in = [tuple(torch.from_numpy(t_).to(dev) for t_ in BC.pack(b_e)) for b_e in edge_b]
+    p_all = B.validate_aggregate_g1_plain(*(torch.cat([e[k] for e in edge_in]) for k in range(3)))[0]
+    off_e = 0
+    for (mode, n_e), b_e, (Xe, Ye, ve) in zip(edge_cases, edge_b, edge_in):
         ok_e = torch.full((n_e,), 0xAA, dtype=torch.uint8, device=dev)
         all_e = torch.ones((1,), dtype=torch.uint8, device=dev)
         tri_e = torch.empty((B.PT_WORDS,), dtype=torch.int32, device=dev)
         B.launch_k15(Xe, Ye, ve.to(torch.uint8), ok_e, all_e, B._scratch(n_e, dev), tri_e)
-        p_e = B.validate_aggregate_g1_plain(Xe, Ye, ve)
+        p_e = p_all[off_e : off_e + n_e]
+        off_e += n_e
         k13_e = B.validate_g1(Xe, Ye, ve)
         torch.cuda.synchronize()
         require(ok_e.tolist() == [int(e) for e in b_e["expect"]], f"K15 != the corpus on {mode} {n_e}")
-        require(torch.equal(ok_e.bool(), p_e[0]) and torch.equal(ok_e.bool(), k13_e),
+        require(torch.equal(ok_e.bool(), p_e) and torch.equal(ok_e.bool(), k13_e),
                 f"K15 != plain / K13 on {mode} {n_e}")
         require(int(all_e) == int(all(b_e["expect"])), f"K15's all-ok byte on {mode} {n_e}")
+        acc_e = (1, 1, 0)
+        for pt, e in zip(b_e["points"], b_e["expect"]):
+            if e:
+                acc_e = H._jac_add(H._FP, acc_e, H._from_affine(H._FP, pt))
         tri_w = (tri_e[:B.NWORDS], tri_e[B.NWORDS:2 * B.NWORDS], tri_e[2 * B.NWORDS:])
-        require(all(torch.equal(g_, w_) for g_, w_ in zip(tri_w, p_e[1:])), f"K15's triple != plain on {mode} {n_e}")
-        results["validate_aggregate_g1"] = max(results["validate_aggregate_g1"], max_abs_err(ok_e, p_e[0]),
-                                               *(max_abs_err(g_, w_) for g_, w_ in zip(tri_w, p_e[1:])))
-    log(f"[20] K15 == the corpus, K13 and plain (ok bytes over 0xAA, the "
-        f"all-ok byte, the triple) on {len(edge_cases)} edge batches: " + ", ".join(f"{m} {n}" for m, n in edge_cases))
+        require(B.jac_to_affine_host(*(t_.cpu() for t_ in tri_w)) == H._to_affine(H._FP, acc_e),
+                f"K15's triple != the host sum on {mode} {n_e}")
+        if (mode, n_e) in word_for_word:
+            pw = B.validate_aggregate_g1_plain(Xe, Ye, ve)
+            require(torch.equal(pw[0], p_e) and all(torch.equal(g, w) for g, w in zip(tri_w, pw[1:])),
+                    f"K15's triple != plain word for word on {mode} {n_e}")
+        results["validate_aggregate_g1"] = max(results["validate_aggregate_g1"], max_abs_err(ok_e, p_e))
+    log(f"[20] K15 == the corpus, K13 and plain (ok bytes over 0xAA, the all-ok byte; the triple == the host "
+        f"sum of the valid rows) on {len(edge_cases)} edge batches: " + ", ".join(f"{m} {n}" for m, n in edge_cases)
+        + "; depth cut for the run's time limit: one plain K15 call over the edge batches' rows "
+        "together, where it ran once a batch; the triple == plain word for word on "
+        + ", ".join(f"{m} {n}" for m, n in sorted(word_for_word)))
     log(f"[20] K13, K15 == plain on all {N_BLS} planted rows (ok bytes and the triple word for word), K13 "
         f"== host oracle on {len(sample)} rows, K15's sum == the host sum of the {sum(live)} valid rows; "
         f"K14 == plain on the {N_BLS} keys, its sum == the host sum; plain ms (once, cold): K13 "
@@ -2292,10 +2336,11 @@ def replay_phases(dev, log, require, zero_counts, read_counts, d):
     items0 = items_of[b0]
     rows0 = np.asarray([entry.index[p] for p, _, _ in items0], dtype=np.int64)
     fills_alone = []
+    packed0 = cv._pack(items0)  # as CombBatchVerifier.add() packs them
     for _ in range(REPLAY_FILL_REPS):
         slab = entry.acquire_slab(cv._payload_width(items0))
         t0 = time.perf_counter()
-        cv._fill_payload(slab, items0, rows0)
+        cv._fill_payload(slab, *packed0, rows0)
         fills_alone.append((time.perf_counter() - t0) * 1e3)
         entry.release_slab(slab)
     payload0 = torch.from_numpy(cv.assemble_payload(items0, rows0, entry.vpad)).to(dev)
@@ -2457,6 +2502,274 @@ def replay_phases(dev, log, require, zero_counts, read_counts, d):
     return rec
 
 
+# ---------------------------------------------------------------- failover
+# Phase 26: the verify service's failover at full width.  The faults are
+# planted only on small batches (phase 7's 150-validator commit, one
+# CheckTx): the host verify of an ed25519 signature is pure Python where
+# the `cryptography` package is missing, so a stranded 10,000-row commit
+# would take minutes to verify again on the host.
+FAILOVER_TURNS = 4  # (a): failover on and off in turns, this many times each
+FAILOVER_CALLS = 3  # (a): timed verify_commit calls a turn, after 1
+FAILOVER_DEADLINE_MS = 2_000  # (c)'s batch deadline
+FAILOVER_PROBE_PERIOD_MS = 1_000  # (c)'s probation probe period
+FAILOVER_PROBE_TIMEOUT_MS = 120_000  # (c)'s probe deadline: a child that imports torch and starts CUDA
+FAILOVER_COLLECT_TIMEOUT_MS = 300  # (d)'s client deadline
+FAILOVER_SLOW_S = 2.0  # (d)'s slow_collect
+FAILOVER_FLIP = 77  # the row of phase 7's commit whose signature (b)-(d) flip
+REVERIFY_CAUSES = ("wedge", "dispatch_error", "submit_error", "collect_error")
+
+
+def failover_counts() -> dict:
+    """The process's failover tallies: trips by the hub and by every
+    global service, host re-verifies of every cause."""
+    from cometbft_tpu_torch.utils.metrics import hub
+    from cometbft_tpu_torch.verifysvc import service as S
+
+    m = hub()
+    return {"trips": m.verify_svc_failover.value(direction="to_cpu"),
+            "service_trips": sum(s.stats(lock_timeout=5.0)["failover"]["trips"] for s in list(S._GLOBAL.values())),
+            "host_reverify": sum(m.verify_svc_host_reverify.value(cause=c) for c in REVERIFY_CAUSES)}
+
+
+def failover_phases(dev, log, require, zero_counts, read_counts, d):
+    """Phase 26 of main(): (a) phase 4's verify_commit with failover on
+    (the watchdog ticking, the health sentinel started by the card's
+    global service under COMETBFT_TPU_HEALTH=1) and off, in turns; (b) fail_dispatch on phase 7's commit with a flipped signature,
+    verified again on the host; (c) wedge_device on it under a 2-s batch
+    deadline: the trip, the host re-verify, one forensics artifact, the
+    real subprocess probe's probation and the restore, then the
+    10,000-row commit through K1 -> K2 -> K4 again; (d) slow_collect past
+    a 300-ms client deadline: the stall report (one artifact for two
+    stalls) and the host path.  Returns the record."""
+    from cometbft_tpu_torch.types import validation
+    from cometbft_tpu_torch.utils import fail, healthmon
+    from cometbft_tpu_torch.utils.flightrec import recorder
+    from cometbft_tpu_torch.utils.metrics import hub
+    from cometbft_tpu_torch.verifysvc import checktx
+    from cometbft_tpu_torch.verifysvc import service as S
+
+    t_phase = time.perf_counter()
+    smi = d["smi"]
+    art_dir = os.path.join("build", "failover")
+    os.makedirs(art_dir, exist_ok=True)
+    for fn in os.listdir(art_dir):
+        os.remove(os.path.join(art_dir, fn))
+    chain_id, vals, bid, height, cache = (d[k] for k in ("chain_id", "vals", "bid", "height", "cache"))
+    kw = dict(device=dev, comb_cache=cache)
+    knobs = ("COMETBFT_TPU_FAILOVER", "COMETBFT_TPU_FAILOVER_BATCH_DEADLINE_MS",
+             "COMETBFT_TPU_FAILOVER_PROBE_PERIOD_MS", "COMETBFT_TPU_FAILOVER_PROBE_TIMEOUT_MS",
+             "COMETBFT_TPU_VERIFYSVC_COLLECT_TIMEOUT_MS", "COMETBFT_TPU_HEALTH", "COMETBFT_TPU_HEALTH_DIR")
+    saved = {k: os.environ.get(k) for k in knobs}
+    m = hub()
+    rec = {}
+
+    def fresh_service(**env):
+        """The global service of the card made anew under ``env``, its
+        artifacts in build/failover."""
+        S.reset_global_service()
+        for k in knobs:
+            if saved[k] is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = saved[k]
+        os.environ.update({k: str(v) for k, v in env.items()})
+        svc = S.global_service(dev)
+        svc.artifact_dir = art_dir
+        return svc
+
+    def reverified(cause):
+        return m.verify_svc_host_reverify.value(cause=cause)
+
+    # phase 7's commit with one flipped signature: the blame every route must give
+    lvals, lcommit = d["lvals"], d["lcommit"]
+    cs = lcommit.signatures[FAILOVER_FLIP]
+    flipped = type(cs)(cs.block_id_flag, cs.validator_address, cs.timestamp,
+                       cs.signature[:40] + bytes([cs.signature[40] ^ 1]) + cs.signature[41:])
+    lbad = type(lcommit)(height=lcommit.height, round=lcommit.round, block_id=lcommit.block_id,
+                         signatures=[flipped if i == FAILOVER_FLIP else s for i, s in enumerate(lcommit.signatures)])
+
+    def light(commit):
+        """verify_commit_light_trusting on the 150 validators, every
+        signature counted -> None or the error's text."""
+        try:
+            validation.verify_commit_light_trusting(chain_id, lvals, commit, Fraction(1, 3),
+                                                    count_all_signatures=True, **kw)
+        except validation.CommitVerificationError as e:
+            return str(e)
+        return None
+
+    try:
+        # ------------------------------------------------ (a) the watchdog's cost
+        walls = {"on": [], "off": []}
+        # the sentinel through the port's entry point: the card's first
+        # global service starts it (a first probe at once, then one a
+        # minute, the JAX default)
+        require(healthmon.monitor() is None, "(a) a health sentinel was already installed")
+        try:
+            for turn in range(FAILOVER_TURNS):
+                for mode in (("on", "off") if turn % 2 == 0 else ("off", "on")):
+                    fresh_service(COMETBFT_TPU_FAILOVER=int(mode == "on"), COMETBFT_TPU_HEALTH=1,
+                                  COMETBFT_TPU_HEALTH_DIR=art_dir)
+                    mon = healthmon.monitor()
+                    require(mon is not None, "(a) COMETBFT_TPU_HEALTH=1 started no sentinel with the global service")
+                    validation.verify_commit(chain_id, vals, bid, height, d["good"], **kw)
+                    for _ in range(FAILOVER_CALLS):
+                        t0 = time.perf_counter()
+                        validation.verify_commit(chain_id, vals, bid, height, d["good"], **kw)
+                        walls[mode].append((time.perf_counter() - t0) * 1e3)
+            probes = mon.snapshot()
+        finally:
+            healthmon.uninstall()
+        require(failover_counts()["trips"] == 0, "(a) tripped")
+        p50 = {k: float(np.median(v)) for k, v in walls.items()}
+        rec["failover_watchdog_p50_ms"] = p50
+        log(f"[26a] ({smi}) verify_commit at {len(vals.validators)} validators through the service, "
+            f"{FAILOVER_TURNS} turns of {FAILOVER_CALLS} calls each: failover on (watchdog ticking, health "
+            f"sentinel started: {probes['probe_attempts']} probe(s), state {probes['state']}, last "
+            f"{json.dumps(probes['last_probe'])}) p50 {p50['on']:.2f} ms, off p50 {p50['off']:.2f} ms "
+            f"({p50['on'] - p50['off']:+.2f}); 0 trips")
+
+        # ------------------------------------------------ (b) fail_dispatch
+        svc = fresh_service()
+        zero_counts()
+        want_b = light(lbad)
+        c_clean = read_counts("failover_clean")
+        require(bool(want_b) and want_b.startswith(f"wrong signature (#{FAILOVER_FLIP}):"),
+                f"(b) the unfaulted commit's blame: {want_b}")
+        require(c_clean["verify_batch"] == 1, f"(b) the unfaulted commit's launches {c_clean}")
+        before = reverified("dispatch_error")
+        fail.arm("fail_dispatch")
+        try:
+            zero_counts()
+            got_b = light(lbad)
+            c_fault = read_counts()
+        finally:
+            fail.clear("fail_dispatch")
+        require(got_b == want_b, f"(b) blame {got_b} != {want_b}")
+        require(reverified("dispatch_error") == before + 1, "(b) not one dispatch-error re-verify")
+        require(svc.backend_mode == S.MODE_TPU and svc.stats()["failover"]["trips"] == 0, "(b) tripped")
+        require(c_fault["verify_batch"] == 0, f"(b) the faulted batch reached the card: {c_fault}")
+        require(light(lcommit) is None, "(b) phase 7's commit after the fault")
+        log(f"[26b] ({smi}) fail_dispatch on phase 7's {len(lvals.validators)}-validator commit with row "
+            f"{FAILOVER_FLIP}'s signature flipped: verified again on the host, blame {got_b!r} == the card's "
+            f"(K5 {c_clean['verify_batch']} launch unfaulted, {c_fault['verify_batch']} faulted); "
+            f"verify_svc_host_reverify{{cause=dispatch_error}} +1; backend mode tpu")
+
+        # ------------------------------------------------ (d) slow_collect past the client's deadline
+        svc = fresh_service(COMETBFT_TPU_VERIFYSVC_COLLECT_TIMEOUT_MS=FAILOVER_COLLECT_TIMEOUT_MS)
+        S._reset_stall_gate()
+        sec = d["secp"]
+        pub, smsg, ssig = sec["items"][0]
+        tx = (checktx.MAGIC_V2 + bytes([SECP_KEY_TYPE_BYTE[len(pub)]]) + pub + ssig
+              + smsg[len(checktx.SIGN_DOMAIN):])
+        stalls0 = {k: m.verify_svc_collect_timeout.value(**{"class": k}) for k in ("consensus", "mempool")}
+        fail.arm("slow_collect", FAILOVER_SLOW_S)
+        try:
+            t0 = time.perf_counter()
+            got_d = light(lbad)
+            t_d = time.perf_counter() - t0
+            got_tx = checktx.verify_tx_signature(tx, service=svc)
+        finally:
+            fail.clear("slow_collect")
+        stalls = {k: m.verify_svc_collect_timeout.value(**{"class": k}) - v for k, v in stalls0.items()}
+        arts_d = sorted(os.listdir(art_dir))
+        require(got_d == want_b and got_tx == sec["verdicts"][0], f"(d) host-path verdicts {got_d}, {got_tx}")
+        require(stalls == {"consensus": 1, "mempool": 1}, f"(d) stall counts {stalls}")
+        require(len(arts_d) == 1, f"(d) {len(arts_d)} stall artifacts, not one")
+        require(svc.stats()["failover"]["trips"] == 0 and failover_counts()["trips"] == 0, "(d) tripped")
+        rec["failover_stall_caller_s"] = t_d
+        log(f"[26d] ({smi}) slow_collect {FAILOVER_SLOW_S} s past a {FAILOVER_COLLECT_TIMEOUT_MS}-ms client "
+            f"deadline: phase 7's commit with the flipped row answered on the host path in {t_d:.2f} s, blame "
+            f"{got_d!r}; a CheckTx (secp) answered {got_tx}; two stall reports "
+            f"(verify_svc_collect_timeout {stalls}), one artifact ({arts_d[0]}); no trip")
+        for fn in arts_d:
+            os.remove(os.path.join(art_dir, fn))
+
+        # ------------------------------------------------ (c) the wedge: trip, re-verify, probe, restore
+        svc = fresh_service(COMETBFT_TPU_FAILOVER_BATCH_DEADLINE_MS=FAILOVER_DEADLINE_MS,
+                            COMETBFT_TPU_FAILOVER_PROBE_PERIOD_MS=FAILOVER_PROBE_PERIOD_MS,
+                            COMETBFT_TPU_FAILOVER_PROBE_TIMEOUT_MS=FAILOVER_PROBE_TIMEOUT_MS)
+        real_probe, probe_log = svc._probe_fn, []
+
+        def probe(timeout_s):  # the service's own subprocess probe, its results kept
+            res = real_probe(timeout_s)
+            probe_log.append(res)
+            return res
+
+        svc._probe_fn = probe
+        seq0 = (recorder().dump()["entries"] or [{"seq": 0}])[-1]["seq"]
+        wedge0 = reverified("wedge")
+        zero_counts()
+        fail.arm("wedge_device")
+        t0 = time.perf_counter()
+        try:
+            got_c = light(lbad)
+            t_answer = time.perf_counter() - t0
+            c_wedge = read_counts("failover_wedge")
+            deadline = time.monotonic() + 60
+            while svc.stats()["failover"]["last_artifact"] is None:
+                require(time.monotonic() < deadline, "(c) no forensics artifact")
+                time.sleep(0.05)
+        finally:
+            fail.clear("wedge_device")
+        t_clear = time.perf_counter()
+        ev = [e for e in recorder().dump()["entries"] if e["seq"] > seq0 and e["kind"] == "verifysvc_failover"]
+        require(len(ev) >= 1 and ev[0]["detail"]["direction"] == "to_cpu", f"(c) events {ev}")
+        t_trip = ev[0]["mono_ns"] / 1e9 - t0  # the recorder's mono_ns is perf_counter_ns
+        fo = svc.stats()["failover"]
+        arts_c = sorted(os.listdir(art_dir))
+        require(got_c == want_b, f"(c) the stranded batch's blame {got_c} != {want_b}")
+        require(fo["trips"] == 1 and "deadline" in fo["last_trip_reason"], f"(c) failover {fo}")
+        require(reverified("wedge") == wedge0 + 1, "(c) not one stranded batch re-verified")
+        require(c_wedge["verify_batch"] == 1, f"(c) the wedged batch's launches {c_wedge}")
+        require(len(arts_c) == 1 and os.path.join(art_dir, arts_c[0]) == fo["last_artifact"],
+                f"(c) artifacts {arts_c}, {fo['last_artifact']}")
+        deadline = time.monotonic() + 5 * FAILOVER_PROBE_TIMEOUT_MS / 1e3
+        while svc.backend_mode != S.MODE_TPU:
+            require(time.monotonic() < deadline, f"(c) no restore; probes {[p.to_dict() for p in probe_log]}")
+            time.sleep(0.05)
+        t_restore = time.perf_counter() - t_clear
+        fo = svc.stats()["failover"]
+        ok_probes = [p for p in probe_log if p.ok]
+        require(fo["restores"] == 1 and len(ok_probes) >= svc.probation_ok, f"(c) failover {fo}")
+        zero_counts()
+        validation.verify_commit(chain_id, vals, bid, height, d["good"], **kw)
+        c_after = read_counts("failover_restored")
+        require((c_after["parse_verify_payload"], c_after["sha512_blocks"], c_after["verify_cached"],
+                 c_after["verify_batch"]) == (1, 1, 1, 0), f"(c) launches after the restore {c_after}")
+        try:
+            validation.verify_commit(chain_id, vals, bid, height, d["faulted"], **kw)
+            raise AssertionError("(c) the planted commit verified after the restore")
+        except validation.CommitVerificationError as e:
+            require(str(e) == d["blame"], f"(c) blame after the restore {e} != phase 2's")
+        rec.update(failover_trip_s=t_trip, failover_answer_s=t_answer, failover_restore_s=t_restore,
+                   failover_probe_s=[p.latency_s for p in probe_log], failover_probes_ok=len(ok_probes))
+        log(f"[26c] ({smi}) wedge_device on phase 7's commit under a {FAILOVER_DEADLINE_MS}-ms batch deadline: "
+            f"tripped {t_trip:.2f} s after the submit (K5 launched {c_wedge['verify_batch']}), the stranded batch "
+            f"verified again on the host in add() order, the caller answered in {t_answer:.2f} s with blame "
+            f"{got_c!r}; one artifact {arts_c[0]}; the wedge cleared, the real subprocess probe "
+            f"({len(probe_log)} probe(s), latencies {[round(p.latency_s, 2) for p in probe_log]} s, "
+            f"{len(ok_probes)} ok: {ok_probes[0].detail if ok_probes else '-'}) restored the card "
+            f"{t_restore:.2f} s after the clear; then the {len(vals.validators)}-row commit launched K1 "
+            f"{c_after['parse_verify_payload']}, K2 {c_after['sha512_blocks']}, K4 {c_after['verify_cached']}, "
+            f"K5 {c_after['verify_batch']}, and the planted commit's blame == phase 2's")
+        expo = [ln for ln in m.registry.expose_text().splitlines()
+                if "verify_svc" in ln or "health_" in ln or "verify_phase" in ln]
+        log("[26] hub exposition (verify_svc_*, verify_phase_seconds, health_*): " + json.dumps("\n".join(expo)))
+    finally:
+        fail.clear_all()
+        healthmon.uninstall()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        S.reset_global_service()
+    rec["failover_phase_s"] = time.perf_counter() - t_phase
+    log(f"[26] ({smi}) failover phase {rec['failover_phase_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2503,6 +2816,14 @@ def main() -> int:
         if path is not None:
             path_launches[path] = got
         return got
+
+    def no_failover(phase):
+        """Every phase but 26 runs with failover on (the default) and must
+        leave it untouched: a kernel that failed on the card and was
+        verified again on the host would otherwise pass unseen."""
+        got = failover_counts()
+        require(got == {"trips": 0, "service_trips": 0, "host_reverify": 0},
+                f"phase {phase}: the verify service tripped or verified on the host: {got}")
 
     # ---------------------------------------------------- 1. device, build
     log(f"[1] device: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -2604,6 +2925,7 @@ def main() -> int:
     launches = read_counts("comb")
     log(f"[2] comb path: good commit verified ({t_first:.2f} s incl. the table build "
         f"of {cache.last_build_ms:.1f} ms); planted commit raised: {blame[:60]}...")
+    no_failover("2")
     log(f"[2] launches on the comb path: {launches}")
     require(blame.startswith(f"wrong signature (#{first_bad}):"), f"blame {blame!r} != #{first_bad}")
     comb_path = ("parse_verify_payload", "sha512_blocks", "build_a_tables", "verify_cached")
@@ -2860,6 +3182,7 @@ def main() -> int:
     log(f"[4] table build (V={V_MAIN}, host clock around K3 and a wait on its build stream): "
         f"{cold_build_ms:.1f} ms in the main path (the process's first K3 launch), "
         f"{warm_build_ms:.1f} ms for a second set")
+    no_failover("4")
     log(f"[4] peak device memory on the main path: {peak / 2**20:.1f} MiB (run 9m: {RUN_9M['peak MiB']} MiB, "
         f"with K3's V x 16 KB scratch)")
 
@@ -3016,6 +3339,8 @@ def main() -> int:
         f"launch shapes and ptxas figures {json.dumps(k5_shapes)}; ed25519.cu "
         + ("cached" if ed_log["cached"] else f"built in {ed_log['seconds']:.1f} s"))
 
+    no_failover("5")
+
     # ---------------------------------------------------- 6. set change
     rng_c = np.random.default_rng(SEED + 1)
     gone = set(rng_c.choice(V_MAIN, N_CHURN, replace=False).tolist())
@@ -3128,6 +3453,8 @@ def main() -> int:
         f"allocations included; run 9m: {RUN_9M['K3 128 keys (wrapper)']} ms), the kernel alone "
         f"{t['build_a_tables_128'][0]:.4f} ms")
 
+    no_failover("6")
+
     # ---------------------------------------------------- 7. light client
     rng_l = np.random.default_rng(SEED + 2)
     lkeys = [host.PrivKey.from_seed(rng_l.bytes(32)) for _ in range(V_LIGHT)]
@@ -3177,6 +3504,8 @@ def main() -> int:
         f"launches {c_light}; K5 == plain at 256 lanes, {t['verify_batch_256'][0]:.4f} ms (run 9m: "
         f"{RUN_9M['K5 256 lanes']} ms)")
 
+    no_failover("7")
+
     # ---------------------------------------------------- 8. demotion
     fk = host.PrivKey.from_seed(rng.bytes(32))
     fmsg = b"a vote from outside the set"
@@ -3202,6 +3531,8 @@ def main() -> int:
     require(c_dem["verify_batch"] == 2 and c_dem["verify_cached"] == 0, f"demotion launches {c_dem}")
     log(f"[8] demotion: a foreign key and a duplicate key each demote a comb batch (the service's "
         f"CombBatchVerifier) to the uncached verifier; verdicts == host oracle; launches {c_dem}")
+
+    no_failover("8")
 
     # ---------------------------------------------------- 9. light client at 10,000
     # The trusted headers are at height - 1 (adjacent) and height - 10
@@ -3265,6 +3596,8 @@ def main() -> int:
     log(f"[9] flipped validators_hash refused: ErrInvalidHeader({refused[:70]}...); the "
         f"changed set of phase 6 refused: ErrInvalidHeader({refused_set[:40]}...)")
 
+    no_failover("9")
+
     # ---------------------------------------------------- 10. proof serving
     rng_p = np.random.default_rng(SEED + 3)
     leaf_buf = rng_p.bytes(N_LEAVES * LEAF_BYTES)
@@ -3302,6 +3635,8 @@ def main() -> int:
         f"== proofs_from_byte_slices (host {host_proofs_ms:.1f} ms); ProofProver.verify p50 "
         f"{p50_proofs:.2f} ms, device_multiproof p50 {p50_multi:.2f} ms (dedup {dedup:.4f}); "
         f"launches {json.dumps(c_proofs)} / {json.dumps(c_multi)}")
+
+    no_failover("10")
 
     # ---------------------------------------------------- 11. K7-K9 parity, times
     # K7 on rows of 1-3 active blocks with stale bytes past each row's end
@@ -3438,11 +3773,15 @@ def main() -> int:
     results.update(secp_results)
     t.update(secp_t)
 
+    no_failover("12-15")
+
     # ---------------------------------------------------- 16-20. the BLS lane
     bls_results, bls_t, bls_bound, bls_meta, bls_record, bls_inputs = bls_phases(
         dev, np.random.default_rng(SEED + 5), log, require, zero_counts, read_counts, cuda_ms, max_abs_err)
     results.update(bls_results)
     t.update(bls_t)
+
+    no_failover("16-20")
 
     # ---------------------------------------------------- 22-23. the sharded plane
     shard_t, shard_plain, shard_err, shard_record = sharded_phases(
@@ -3456,6 +3795,8 @@ def main() -> int:
             "flat": flat_p, "coords": pc,
         })
 
+    no_failover("22-23")
+
     # ---------------------------------------------------- 24. the verify service
     svc_record = service_phases(dev, log, require, zero_counts, read_counts, {
         "smi": smi, "chain_id": CHAIN_ID, "vals": vals, "bid": bid, "height": height, "good": good,
@@ -3464,10 +3805,20 @@ def main() -> int:
         "root": host_root, "trusted_sh": trusted_sh, "new_sh": new_sh, "now_ns": now_ns,
     })
 
+    no_failover("24")
+
     # ---------------------------------------------------- 25. the blocksync replay
     replay_record = replay_phases(dev, log, require, zero_counts, read_counts, {
         "smi": smi, "chain_id": CHAIN_ID, "vals": vals, "bid": bid, "height": height, "good": good,
         "cache": cache,
+    })
+    no_failover("25")
+
+    # ---------------------------------------------------- 26. the failover
+    failover_record = failover_phases(dev, log, require, zero_counts, read_counts, {
+        "smi": smi, "chain_id": CHAIN_ID, "vals": vals, "bid": bid, "height": height, "good": good,
+        "faulted": faulted, "blame": blame, "cache": cache, "lvals": lvals, "lcommit": lcommit,
+        "secp": secp_inputs,
     })
 
     # ---------------------------------------------------- 21. the record
@@ -3666,7 +4017,11 @@ def main() -> int:
         f"{svc_record['service_phase_s']:.1f} s; blocksync replay of {N_REPLAY_BLOCKS} commits of {V_REPLAY}: "
         f"{replay_record['replay_ms_per_block']['depth1']:.2f} ms a block at depth 1, "
         f"{replay_record['replay_ms_per_block']['depth2']:.2f} at depth 2; replay phase "
-        f"{replay_record['replay_phase_s']:.1f} s")
+        f"{replay_record['replay_phase_s']:.1f} s; failover: verify_commit p50 "
+        f"{failover_record['failover_watchdog_p50_ms']['on']:.2f} ms with the watchdog on, "
+        f"{failover_record['failover_watchdog_p50_ms']['off']:.2f} off, trip {failover_record['failover_trip_s']:.2f} s, "
+        f"restore {failover_record['failover_restore_s']:.2f} s after the clear; failover phase "
+        f"{failover_record['failover_phase_s']:.1f} s")
     log(f"[21] {smi}: beside run 9m (ms) — light-client p50 {p50_l:.2f} ({RUN_9M['light-client p50']}), "
         f"uncached p50 {p50_u:.2f} ({RUN_9M['uncached p50']}), set change's first call {change_first_ms:.1f} "
         f"({RUN_9M['set change first call']}), churn build {churn_ms:.1f} beside it "
@@ -3687,7 +4042,7 @@ def main() -> int:
                     "light_10k_p50_ms": p50_light, "proofs_16k_p50_ms": p50_proofs,
                     "multiproof_16k_p50_ms": p50_multi, "multiproof_dedup": dedup,
                     "host_proofs_16k_ms": host_proofs_ms, **secp_record, **bls_record,
-                    **shard_record, **svc_record, **replay_record}))
+                    **shard_record, **svc_record, **replay_record, **failover_record}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

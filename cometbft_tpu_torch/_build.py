@@ -9,7 +9,8 @@ changes.  A failed build raises :class:`BuildError`; there is no fallback.
 
 The C entry points take device pointers and the CUDA stream as
 ``c_void_p`` and ints as ``c_int``, and return ``cudaGetLastError()``
-after their launch; :func:`check` raises on a non-zero code.
+after their launch; :func:`check` raises on a non-zero code.  A wrapper
+that refuses its arguments raises :class:`LaunchRefused` (a ValueError).
 """
 
 from __future__ import annotations
@@ -97,6 +98,11 @@ class BuildError(RuntimeError):
 
 class KernelError(RuntimeError):
     pass
+
+
+class LaunchRefused(ValueError):
+    """A kernel wrapper's refusal of its arguments (shape, dtype, device
+    or alignment): a fault of the caller, never of the card."""
 
 
 _LOCK = threading.Lock()

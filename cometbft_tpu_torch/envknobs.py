@@ -84,3 +84,46 @@ TRACE = _declare("COMETBFT_TPU_TRACE", "")
 TRACE_RING = _declare("COMETBFT_TPU_TRACE_RING", 65536)
 # 0 records no trace_id / span_id args on events.
 TRACE_CTX = _declare("COMETBFT_TPU_TRACE_CTX", True)
+
+# The metrics hub (utils/metrics.py): distinct tenant label values it
+# exposes; later tenants aggregate under `__overflow__`
+# (cometbft_tpu/utils/envknobs.py:247).
+VERIFYSVC_TENANT_LABEL_MAX = _declare("COMETBFT_TPU_VERIFYSVC_TENANT_LABEL_MAX", 32)
+
+# The verify service's failover watchdog (verifysvc/service.py), with the
+# JAX package's defaults (cometbft_tpu/utils/envknobs.py:361-389).
+# 0 turns the watchdog off: a wedged card then strands its batches, and
+# an error of a batch fails its tickets.
+FAILOVER = _declare("COMETBFT_TPU_FAILOVER", True)
+# A batch on the card (dispatched to it, or waited for) longer than this
+# (ms) trips the service to the host; host-worker time is exempt.
+FAILOVER_BATCH_DEADLINE_MS = _declare("COMETBFT_TPU_FAILOVER_BATCH_DEADLINE_MS", 30000)
+# Consecutive good probation probes before a tripped service restores.
+FAILOVER_PROBATION_OK = _declare("COMETBFT_TPU_FAILOVER_PROBATION_OK", 2)
+# The probation probe's period and deadline (ms) while tripped.
+FAILOVER_PROBE_PERIOD_MS = _declare("COMETBFT_TPU_FAILOVER_PROBE_PERIOD_MS", 15000)
+FAILOVER_PROBE_TIMEOUT_MS = _declare("COMETBFT_TPU_FAILOVER_PROBE_TIMEOUT_MS", 10000)
+
+# The faults the verify service reads (utils/fail.py), armed at process
+# start when non-empty (cometbft_tpu/utils/envknobs.py:391-406): a
+# number is the fault's value, any other text arms it with 1.
+FAULT_WEDGE_DEVICE = _declare("COMETBFT_TPU_FAULT_WEDGE_DEVICE", "")
+FAULT_SLOW_COLLECT = _declare("COMETBFT_TPU_FAULT_SLOW_COLLECT", "")
+FAULT_FAIL_DISPATCH = _declare("COMETBFT_TPU_FAULT_FAIL_DISPATCH", "")
+
+# The flight recorder's ring capacity in events (at least 1).
+FLIGHTREC = _declare("COMETBFT_TPU_FLIGHTREC", 1024)
+
+# The health sentinel (utils/healthmon.py), with the JAX package's
+# defaults (cometbft_tpu/utils/envknobs.py:501-532).
+# 1 starts the sentinel in maybe_start(); off, beats are no-ops.
+HEALTH = _declare("COMETBFT_TPU_HEALTH", False)
+# The sentinel's probe period and one probe's deadline (ms).
+HEALTH_PERIOD_MS = _declare("COMETBFT_TPU_HEALTH_PERIOD_MS", 60000)
+HEALTH_PROBE_TIMEOUT_MS = _declare("COMETBFT_TPU_HEALTH_PROBE_TIMEOUT_MS", 20000)
+# Consecutive failed probes at which the state is `wedged`.
+HEALTH_WEDGE_AFTER = _declare("COMETBFT_TPU_HEALTH_WEDGE_AFTER", 2)
+# The least time (ms) between two forensics artifacts.
+HEALTH_ARTIFACT_MIN_INTERVAL_MS = _declare("COMETBFT_TPU_HEALTH_ARTIFACT_MIN_INTERVAL_MS", 300000)
+# Where forensics artifacts go; empty is the temporary directory.
+HEALTH_DIR = _declare("COMETBFT_TPU_HEALTH_DIR", "")

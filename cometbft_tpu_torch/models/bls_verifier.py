@@ -44,7 +44,9 @@ host, in the native core (crypto/bls12381).  Spans (utils/tracing.py,
 the JAX names and sites): ``verify.bls_validate`` around a validation on
 the card (``fused`` on the cold aggregate path), ``verify.bls_aggregate``
 around a sum on the card, ``verify.bls_pairing`` around the batch's
-pairing-product check.  The metrics hub is not ported.
+pairing-product check.  ``verify_phase_seconds`` (utils/metrics.py)
+observes the JAX phases ``bls_validate_device`` / ``bls_validate_host``,
+``bls_sig_decode`` and ``bls_pairing`` at the JAX sites.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from .._device import resolve_device
 from ..crypto import bls12381 as host_bls
 from ..ops import bls381 as dev_bls
 from ..utils import tracing
+from ..utils.metrics import hub as _mhub
 
 PUBKEY_SIZE = host_bls.PUBKEY_SIZE  # 48: compressed G1
 SIG_SIZE = host_bls.SIG_SIZE  # 96: compressed G2
@@ -201,6 +204,7 @@ def _validated_pubkeys(pubs, device, clock: _Clock):
     order = list(fresh.keys())
     decoded = [_decode_pub(pub) for pub in order]
     clock.lap("decode_ms")
+    t0 = time.perf_counter()
     candidates = sum(1 for aff in decoded if aff is not None)
     if device is not None and candidates >= validate_device_min():
         with tracing.span(
@@ -209,11 +213,14 @@ def _validated_pubkeys(pubs, device, clock: _Clock):
         ):
             ok = dev_bls.validate_pubkeys_device(decoded, device=device)
         checked = [aff if o else None for aff, o in zip(decoded, ok)]
+        where = "device"
     else:
         checked = [
             aff if aff is not None and host_bls._in_subgroup(host_bls._FP, aff) else None
             for aff in decoded
         ]
+        where = "host"
+    _mhub().verify_phase_seconds.observe(time.perf_counter() - t0, phase=f"bls_validate_{where}")
     for pub, aff in zip(order, checked):
         cache.put(pub, aff)
         for i in fresh[pub]:
@@ -268,11 +275,13 @@ def _verify_items(items, device=None, timings: dict | None = None) -> tuple[bool
         # the unit's aggregate
         decoded = [_decode_pub(p) for p in pubs]
         clock.lap("decode_ms")
+        t0 = time.perf_counter()
         with tracing.span(
             "verify.bls_validate",
             {"keys": n, "where": "device", "fused": True} if tracing.enabled() else None,
         ):
             ok, agg = dev_bls.validate_aggregate_device(decoded, device=device)
+        _mhub().verify_phase_seconds.observe(time.perf_counter() - t0, phase="bls_validate_device")
         clock.lap("validate_ms")
         pub_affs = [aff if o else None for aff, o in zip(decoded, ok)]
         for p, aff in zip(pubs, pub_affs):
@@ -284,7 +293,9 @@ def _verify_items(items, device=None, timings: dict | None = None) -> tuple[bool
         pub_affs = _validated_pubkeys(pubs, device, clock)
         clock.lap("validate_ms")  # cache hits count as validation
 
+    t0 = time.perf_counter()
     sig_pts = {key: _decode_sig(key[1]) for key in units}
+    _mhub().verify_phase_seconds.observe(time.perf_counter() - t0, phase="bls_sig_decode")
     clock.lap("sig_decode_ms")
 
     wellformed: dict[tuple[bytes, bytes], bool] = {
@@ -317,8 +328,10 @@ def _verify_items(items, device=None, timings: dict | None = None) -> tuple[bool
             acc = host_bls._jac_add(host_bls._FP2, acc, host_bls._from_affine(host_bls._FP2, sig_pts[key]))
         pairs.append((_NEG_G1, host_bls._to_affine(host_bls._FP2, acc)))
         clock.lap("sig_decode_ms")
+        t0 = time.perf_counter()
         with tracing.span("verify.bls_pairing", {"units": len(units)} if tracing.enabled() else None):
             batch_ok = pairing(pairs)
+        _mhub().verify_phase_seconds.observe(time.perf_counter() - t0, phase="bls_pairing")
         if batch_ok:
             return (True, [True] * n)
 

@@ -52,11 +52,13 @@ import contextlib
 import hashlib
 import threading
 import time
+from array import array
 from collections import OrderedDict
 from concurrent.futures import Future
 
 import numpy as np
 import torch
+from numpy.lib.stride_tricks import sliding_window_view
 
 from .. import _build, envknobs
 from .._device import resolve_device
@@ -64,6 +66,7 @@ from ..ops import comb, sha2
 from ..parallel import mesh as pmesh
 from ..parallel.verify import sharded_verify_cached
 from ..utils import tracing
+from ..utils.metrics import hub as _mhub
 from .verifier import Ed25519BatchVerifier
 
 LAUNCHES = {"assemble_churn": 0}
@@ -124,7 +127,10 @@ class _CacheEntry:
         with self._slab_mtx:
             pool = self._slabs.get(width)
             if pool:
-                return pool.pop()
+                slab = pool.pop()
+                _mhub().verify_slab_requests.inc(result="hit")
+                return slab
+        _mhub().verify_slab_requests.inc(result="miss")
         return _PayloadSlab(self.vpad, width, pinned=self.device.type == "cuda")
 
     def release_slab(self, slab: _PayloadSlab) -> None:
@@ -222,19 +228,29 @@ class ValsetCombCache:
         are reused for the unchanged validators (an incremental churn
         build): only the new keys go through K3."""
         mesh, dev = placement(device)
-        return self._ensure(pubkeys, dev, mesh)
+        return self._ensure(pubkeys, dev, mesh, count=True)
 
-    def _ensure(self, pubkeys: list[bytes], dev: torch.device, mesh) -> _CacheEntry:
+    def _ensure(self, pubkeys: list[bytes], dev: torch.device, mesh, count: bool = False) -> _CacheEntry:
+        """``count``: observe the lookup in ``verify_comb_table_cache_total``
+        (a background build's own lookup was counted by ensure_async)."""
         key = self._key(pubkeys, dev, mesh)
         e = self.get(key)
         if e is not None:
+            if count:
+                _mhub().comb_table_cache.inc(result="hit")
             return e
         with self._mtx:
             build_lock = self._building.setdefault(key, threading.Lock())
         with build_lock:
             e = self.get(key)  # the race loser finds the winner's entry
             if e is not None:
+                if count:
+                    # served by another caller's build: a wait, not a second
+                    # miss (misses stay one a build)
+                    _mhub().comb_table_cache.inc(result="building")
                 return e
+            if count:
+                _mhub().comb_table_cache.inc(result="miss")
             entry = self._build(pubkeys, dev, self._newest(key), mesh)
             with self._mtx:
                 self._entries[key] = entry
@@ -255,6 +271,7 @@ class ValsetCombCache:
         key = self._key(pubkeys, dev, mesh)
         e = self.get(key)
         if e is not None:
+            _mhub().comb_table_cache.inc(result="hit")
             return e
         pubkeys = list(pubkeys)
 
@@ -267,9 +284,11 @@ class ValsetCombCache:
 
         with self._mtx:
             if key in self._async:
+                _mhub().comb_table_cache.inc(result="building")
                 return None  # its build is running
             t = threading.Thread(target=build, name="comb-build", daemon=True)
             self._async[key] = t
+        _mhub().comb_table_cache.inc(result="miss")
         t.start()
         return None
 
@@ -368,6 +387,9 @@ class ValsetCombCache:
             for t in (tables, valid, pubs):
                 t.record_stream(consumer)
         self.last_build_ms = (time.perf_counter() - t0) * 1e3
+        # the JAX package's phase of a build on the device (the port has
+        # no host build)
+        _mhub().verify_phase_seconds.observe(self.last_build_ms / 1e3, phase="table_build_device")
         return _CacheEntry(tables, valid, pubs, b_tab, index, mesh)
 
 
@@ -399,20 +421,20 @@ def assemble_churn(base_tables, base_valid, new_tables, new_valid, new_rows, bas
     shape = (comb.NPOS_A, comb.NENT_A, 3, 8)
     for name, t in (("base_tables", base_tables), ("new_tables", new_tables)):
         if t.dtype != torch.int32 or tuple(t.shape[1:]) != shape:
-            raise ValueError(f"{name} must be (*, 64, 8, 3, 8) int32")
+            raise _build.LaunchRefused(f"{name} must be (*, 64, 8, 3, 8) int32")
     if new_rows.shape != base_rows.shape:
-        raise ValueError("new_rows and base_rows must pair up")
+        raise _build.LaunchRefused("new_rows and base_rows must pair up")
     if fresh_rows.shape[0] > new_tables.shape[0]:
-        raise ValueError("more fresh rows than freshly built tables")
+        raise _build.LaunchRefused("more fresh rows than freshly built tables")
     args = (base_tables, base_valid, new_tables, new_valid, new_rows, base_rows, fresh_rows)
     devs = {t.device for t in args}
     if len(devs) != 1:
-        raise ValueError(f"arguments on several devices: {devs}")
+        raise _build.LaunchRefused(f"arguments on several devices: {devs}")
     dev = base_tables.device
     if dev.type == "cpu":
         return assemble_churn_plain(*args, V)
     if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+        raise _build.LaunchRefused(f"unsupported device {dev}")
     # src[v]: base row (>= 0), fresh row f as -1 - f, or no source
     src = torch.full((V,), -(1 << 31), dtype=torch.int32, device=dev)
     src[new_rows] = base_rows.to(torch.int32)
@@ -428,7 +450,7 @@ def launch_k6(base_tables, base_valid, new_tables, new_valid, src, tables, valid
     """K6 into preallocated outputs on the current stream."""
     for t in (base_tables, new_tables, tables):
         if t.data_ptr() % 16:
-            raise ValueError("K6 needs 16-byte aligned tables")
+            raise _build.LaunchRefused("K6 needs 16-byte aligned tables")
     with torch.cuda.device(tables.device):
         code = _build.lib("churn").k6_assemble_churn(
             base_tables.data_ptr(), base_valid.data_ptr(), new_tables.data_ptr(),
@@ -569,14 +591,19 @@ def run_in_stage_order(fn):
 
 
 def _fill_payload(
-    slab: _PayloadSlab, items: list[tuple[bytes, bytes, bytes]], rows: np.ndarray
+    slab: _PayloadSlab, sigs, msgs, lens: np.ndarray, rows: np.ndarray
 ) -> np.ndarray:
     """Fill a staging slab with the tight device payload: row layout
     R(32) | s(32) | mlen(3B LE) | live(1B) | msg.
 
-    items are (pubkey, msg, sig) in add() order; rows maps each item to
-    its validator row.  Pure NumPy slice/scatter writes — no per-row
-    Python loop on any commit-shaped batch.  Fast paths, in order:
+    The batch comes packed as CombBatchVerifier.add() keeps it: ``sigs``
+    the n 64-byte signatures end to end, ``msgs`` the n messages end to
+    end, ``lens`` their lengths (int64) and ``rows`` each item's
+    validator row, in add() order.  A few NumPy bulk copies, no loop
+    over the items in Python: NumPy copies with the GIL released, so
+    the threads beside the staging thread run on.  Bytes of a row's
+    message region past its mlen read 0 (K1 masks them anyway).  Fast
+    paths, in order:
 
       - same layout as the slab's previous use (row set + message
         length): the constant mlen/live columns survive verbatim; only
@@ -584,15 +611,18 @@ def _fill_payload(
       - contiguous rows 0..n-1 (every validator signed, commit order):
         plain slice writes instead of fancy-index scatters.
       - all-equal message lengths (canonical vote sign-bytes): one
-        reshaped block write for the messages.
+        reshaped block write for the messages.  Mixed lengths take one
+        gather of every message's window of the longest length from
+        the packed bytes (a strided view, no index matrix), then zero
+        each row's tail past its length.
     """
     buf = slab.buf
-    n = len(items)
-    sig_arr = np.frombuffer(b"".join(s for _, _, s in items), dtype=np.uint8).reshape(n, 64)
-    msgs = [m for _, m, _ in items]
-    lens = np.fromiter((len(m) for m in msgs), np.int64, n)
+    n = len(lens)
+    sig_arr = np.frombuffer(sigs, dtype=np.uint8).reshape(n, 64)
     l0 = int(lens[0]) if n else 0
-    same_len = bool((lens == l0).all()) if n else True
+    lmax = int(lens.max()) if n else 0
+    lmin = int(lens.min()) if n else 0
+    same_len = lmin == lmax
 
     contig = bool(
         n
@@ -620,15 +650,28 @@ def _fill_payload(
         buf[target, 67] = 1  # live-row flag (mlen == 0 is legal)
 
     buf[target, :64] = sig_arr
+    flat = np.frombuffer(msgs, dtype=np.uint8)
     if same_len:
         if l0:
-            buf[target, 68 : 68 + l0] = np.frombuffer(b"".join(msgs), np.uint8).reshape(n, l0)
-    else:
-        for row, m in zip(rows, msgs):
-            buf[row, 68 : 68 + len(m)] = np.frombuffer(m, np.uint8)
+            buf[target, 68 : 68 + l0] = flat.reshape(n, l0)
+    elif lmax:
+        offs = np.zeros(n, dtype=np.int64)
+        np.cumsum(lens[:-1], out=offs[1:])
+        if int(offs[-1]) + lmax > flat.size:  # the last windows run past the end
+            flat = np.concatenate([flat, np.zeros(lmax, dtype=np.uint8)])
+        win = sliding_window_view(flat, lmax)[offs]  # (n, lmax): each message and what follows it
+        win[:, lmin:][np.arange(lmin, lmax)[None, :] >= lens[:, None]] = 0
+        buf[target, 68 : 68 + lmax] = win
     slab.dirty = target if contig else rows
     slab.layout = layout
     return buf
+
+
+def _pack(items) -> tuple[bytes, bytes, np.ndarray]:
+    """(sigs, msgs, lens) of (pubkey, msg, sig) items, as add() packs
+    them."""
+    return (b"".join(s for _, _, s in items), b"".join(m for _, m, _ in items),
+            np.fromiter((len(m) for _, m, _ in items), np.int64, len(items)))
 
 
 def _bucket_mlen(mlen: int) -> int:
@@ -651,7 +694,7 @@ def assemble_payload(
     """One-shot payload assembly into a fresh host buffer (tests and
     profiling); the hot path recycles per-entry slabs."""
     slab = _PayloadSlab(vpad, _payload_width(items), pinned=False)
-    return _fill_payload(slab, items, np.asarray(rows, dtype=np.int64))
+    return _fill_payload(slab, *_pack(items), np.asarray(rows, dtype=np.int64))
 
 
 def device_verify(tables, valid, pubs, payload, b_tables) -> torch.Tensor:
@@ -674,14 +717,23 @@ class CombBatchVerifier:
     demotes the whole batch to the uncached verifier
     (models/verifier.Ed25519BatchVerifier), which then verifies every
     item in add() order (cometbft_tpu/models/comb_verifier.py:557-582)
-    with its own submit.  add() only appends: the assembly, hashing and
-    transfers happen on the staging thread after submit()."""
+    with its own submit.  add() only appends, and packs the signature and
+    the message into the batch's byte arrays as it goes: the payload
+    fill on the staging thread after submit() is then a few bulk copies
+    (``_fill_payload``), with no loop over the items in Python."""
 
     def __init__(self, entry: _CacheEntry):
         self._entry = entry
         self._rows: list[int] = []
         self._row_set: set[int] = set()
         self._items: list[tuple[bytes, bytes, bytes]] = []
+        # the packed batch: signatures and messages end to end, the
+        # messages' lengths; handed to the stage at submit(), copied
+        # before an add() after it writes (the ticket keeps its snapshot)
+        self._sigs = bytearray()
+        self._msgs = bytearray()
+        self._lens = array("q")
+        self._handed_over = False
         self._fallback: Ed25519BatchVerifier | None = None
         # the reserve_stage() token of this batch's request (the verify
         # service takes one under a mesh), or None
@@ -718,6 +770,13 @@ class CombBatchVerifier:
             return
         self._row_set.add(row)
         self._rows.append(row)
+        if self._handed_over:
+            # the submitted stage reads the arrays it was handed
+            self._sigs, self._msgs, self._lens = bytearray(self._sigs), bytearray(self._msgs), array("q", self._lens)
+            self._handed_over = False
+        self._sigs += sig
+        self._msgs += msg
+        self._lens.append(len(msg))
 
     def submit(self):
         """Hand the batch to the staging thread and return at once: the
@@ -737,9 +796,14 @@ class CombBatchVerifier:
             return ("sync", (False, []))
         entry = self._entry
         idx = np.asarray(self._rows, dtype=np.int64)
-        # the stage reads a snapshot: an add() after submit() leaves the
-        # ticket as it was
-        items = list(self._items)
+        # the stage reads a snapshot: an add() after submit() copies the
+        # arrays before it writes, so the ticket stays as it was
+        sigs, msgs, lens = self._sigs, self._msgs, np.frombuffer(self._lens, dtype=np.int64).copy()
+        self._handed_over = True
+        width = 68 + _bucket_mlen(int(lens.max()))
+        m = _mhub()
+        m.verify_batch_width.observe(float(n))
+        m.verify_submit_queue_depth.add(1)
 
         def stage():
             timings: dict[str, float] = {}
@@ -747,8 +811,8 @@ class CombBatchVerifier:
             try:
                 t0 = time.perf_counter()
                 with tracing.span("verify.slab_fill"):
-                    slab = entry.acquire_slab(_payload_width(items))
-                    _fill_payload(slab, items, idx)
+                    slab = entry.acquire_slab(width)
+                    _fill_payload(slab, sigs, msgs, lens, idx)
                 t1 = time.perf_counter()
                 with tracing.span("verify.h2d_dispatch"), (
                         torch.cuda.device(entry.device) if entry.device.type == "cuda"
@@ -775,11 +839,20 @@ class CombBatchVerifier:
                     slab.retire()
                     entry.release_slab(slab)
                 raise
+            finally:
+                m.verify_submit_queue_depth.add(-1)
             timings["assembly_ms"] = (t1 - t0) * 1e3
             timings["h2d_dispatch_ms"] = (t2 - t1) * 1e3
+            m.verify_phase_seconds.observe(t1 - t0, phase="assembly")
+            m.verify_phase_seconds.observe(t2 - t1, phase="h2d_dispatch")
+            m.verify_staging_busy.inc(t2 - t0)
             return done, host, slab, timings
 
-        fut = _staging_executor().put(stage, self._stage_token)
+        try:
+            fut = _staging_executor().put(stage, self._stage_token)
+        except BaseException:
+            m.verify_submit_queue_depth.add(-1)  # stage() never ran
+            raise
         return ("dev", (fut, idx))
 
     def collect(self, ticket) -> tuple[bool, list[bool]]:
@@ -812,6 +885,9 @@ class CombBatchVerifier:
         self._entry.release_slab(slab)  # the copy has consumed the slab
         timings["staging_wait_ms"] = (t1 - t0) * 1e3
         timings["device_wait_ms"] = (t2 - t1) * 1e3
+        m = _mhub()
+        m.verify_phase_seconds.observe(t1 - t0, phase="staging_wait")
+        m.verify_phase_seconds.observe(t2 - t1, phase="device_wait")
         self.last_timings.update(timings)
         with tracing.span("verify.blame_unpack"):
             out = host.numpy()

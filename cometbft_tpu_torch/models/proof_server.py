@@ -25,8 +25,9 @@ JAX package's environment variables with its defaults
 (cometbft_tpu/utils/envknobs.py:338-351).  Spans (utils/tracing.py, the
 JAX names): ``verify.proof.device_dispatch`` / ``verify.proof.host_route``
 a tree, ``verify.proof.prove`` a front-door call and
-``verify.proof.host_fallback`` its host path.  Its metrics are not
-ported.
+``verify.proof.host_fallback`` its host path.  Metrics (utils/metrics.py,
+the JAX names and sites): ``verify_proof_tree_cache_total`` a lookup by
+digest, ``verify_proof_queries_total`` the queries answered a route.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from .. import envknobs
 from .._device import resolve_device
 from ..crypto import merkle as cmerkle
 from ..utils import tracing
+from ..utils.metrics import hub as _metrics_hub
 
 _INDEX_WIDTH = 8  # query index wire width (big-endian, unsigned)
 
@@ -94,6 +96,7 @@ class _TreeCache:
             t = self._trees.get(digest)
             if t is not None:
                 self._trees.move_to_end(digest)
+        _metrics_hub().verify_proof_tree_cache.inc(result="hit" if t is not None else "miss")
         return t
 
 
@@ -147,6 +150,7 @@ def _prove_items(items, device):
         except (ValueError, TypeError):
             continue  # malformed row -> None
         by_digest.setdefault(digest, []).append((pos, idx))
+    m = _metrics_hub()
     for digest, queries in by_digest.items():
         leaves = tree_leaves(digest)
         if leaves is None:
@@ -162,12 +166,14 @@ def _prove_items(items, device):
                 {"queries": len(idxs), "total": total} if tracing.enabled() else None,
             ):
                 _, proofs = cmerkle.device_proofs_from_byte_slices(list(leaves), idxs, device=device)
+            m.verify_proof_queries.inc(len(idxs), route="device")
         else:
             with tracing.span(
                 "verify.proof.host_route", {"queries": len(idxs)} if tracing.enabled() else None
             ):
                 _, all_proofs = cmerkle.proofs_from_byte_slices(list(leaves))
                 proofs = [all_proofs[i] for i in idxs]
+            m.verify_proof_queries.inc(len(idxs), route="host")
         for (pos, _), proof in zip(good, proofs):
             rows[pos] = proof
     ok = bool(rows) and all(r is not None for r in rows)

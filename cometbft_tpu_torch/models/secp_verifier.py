@@ -49,6 +49,7 @@ from ..ops import keccak as kops
 from ..ops import secp256k1 as dev_secp
 from ..ops import sha2
 from ..utils import tracing
+from ..utils.metrics import hub as _mhub
 
 COSMOS_PUB = host_secp.PUBKEY_SIZE  # 33: compressed
 COSMOS_SIG = host_secp.SIGNATURE_SIZE  # 64: r || s
@@ -137,8 +138,10 @@ def _decode_pub(pub: bytes):
     hit = cache.get(pub, _MISS)
     if hit is not _MISS:
         CACHE_STATS["hit"] += 1
+        _mhub().secp_pubkey_cache.inc(result="hit")
         return hit
     CACHE_STATS["miss"] += 1
+    _mhub().secp_pubkey_cache.inc(result="miss")
     fact = None
     try:
         if len(pub) == COSMOS_PUB:
@@ -372,8 +375,10 @@ class SecpBatchVerifier:
         hash_dev, hmax, glv, recover = _route(self._items)
         timings = {"rows": float(n), "hash_device": float(hash_dev), "glv": float(glv),
                    "recover": float(recover)}
+        t0 = time.perf_counter()
         st = stage_batch(self._items, self._dev, hash_dev, hmax, timings)
         t1 = time.perf_counter()
+        _mhub().verify_phase_seconds.observe(t1 - t0, phase="secp_assembly")
         with tracing.span(
             "verify.secp_batch",
             {"sigs": n, "where": "device", "hash": "device" if hash_dev else "host"}
@@ -400,6 +405,9 @@ class SecpBatchVerifier:
         if done is not None:
             done.synchronize()
         timings["device_wait_ms"] = (time.perf_counter() - t0) * 1e3
+        # the JAX lane's secp_device phase: the launch and the wait
+        _mhub().verify_phase_seconds.observe(
+            (timings["h2d_dispatch_ms"] + timings["device_wait_ms"]) / 1e3, phase="secp_device")
         self.last_timings.update(timings)
         res = host.tolist()
         return all(res), res

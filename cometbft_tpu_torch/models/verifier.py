@@ -24,6 +24,7 @@ from ..crypto import ed25519 as host_ed25519
 from ..ops import ed25519 as E
 from ..ops import sha2
 from ..utils import tracing
+from ..utils.metrics import hub as _metrics_hub
 
 
 class BatchVerifier(Protocol):
@@ -128,6 +129,7 @@ class Ed25519BatchVerifier:
         n = len(self._items)
         if n == 0:
             return ("sync", (False, []))
+        _metrics_hub().verify_batch_width.observe(float(n))
         t0 = time.perf_counter()
         with tracing.span("verify.uncached_assemble"):
             a, r, s, blocks, active = stage_batch(self._items, self._dev)
@@ -143,6 +145,9 @@ class Ed25519BatchVerifier:
                 host, done = ok, None
         t2 = time.perf_counter()
         timings = {"assembly_ms": (t1 - t0) * 1e3, "h2d_dispatch_ms": (t2 - t1) * 1e3}
+        m = _metrics_hub()
+        m.verify_phase_seconds.observe(t1 - t0, phase="assembly")
+        m.verify_phase_seconds.observe(t2 - t1, phase="h2d_dispatch")
         return ("dev", (done, host, timings))
 
     def collect(self, ticket) -> tuple[bool, list[bool]]:
@@ -155,7 +160,9 @@ class Ed25519BatchVerifier:
         with tracing.span("verify.device_wait"):
             if done is not None:
                 done.synchronize()
-        timings["device_wait_ms"] = (time.perf_counter() - t0) * 1e3
+        waited = time.perf_counter() - t0
+        _metrics_hub().verify_phase_seconds.observe(waited, phase="device_wait")
+        timings["device_wait_ms"] = waited * 1e3
         self.last_timings.update(timings)
         res = host.tolist()
         return all(res), res

@@ -440,13 +440,13 @@ def _check(n, **arrays) -> torch.device:
     dev = None
     for name, (t, shape, dtypes) in arrays.items():
         if tuple(t.shape) != (n,) + shape or t.dtype not in dtypes:
-            raise ValueError(f"{name} must be {(n,) + shape} of {dtypes}, got {tuple(t.shape)} {t.dtype}")
+            raise _build.LaunchRefused(f"{name} must be {(n,) + shape} of {dtypes}, got {tuple(t.shape)} {t.dtype}")
         if dev is None:
             dev = t.device
         elif t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, not {dev}")
+            raise _build.LaunchRefused(f"{name} is on {t.device}, not {dev}")
     if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
+        raise _build.LaunchRefused(f"unsupported device {dev}")
     return dev
 
 

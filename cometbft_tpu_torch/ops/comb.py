@@ -144,13 +144,13 @@ def adopt_b_tables(table: np.ndarray) -> None:
     global _B_TABLE
     table = np.asarray(table)
     if table.dtype != np.uint32 or table.shape != (NPOS_B, NENT_B, 3, 8):
-        raise ValueError("a B table is (22, 4096, 3, 8) uint32")
+        raise _build.LaunchRefused("a B table is (22, 4096, 3, 8) uint32")
     b4096 = ref.BASE
     for _ in range(12):
         b4096 = ref.pt_add(b4096, b4096)
     want = E.niels_words_host([ref.IDENT, ref.BASE, ref.pt_add(ref.BASE, ref.BASE), b4096])
     if not (np.array_equal(table[0, :3], want[:3]) and np.array_equal(table[1, 1], want[3])):
-        raise ValueError("not the B table: its first entries differ from j * B")
+        raise _build.LaunchRefused("not the B table: its first entries differ from j * B")
     table = table.copy()
     table.setflags(write=False)
     with _B_TABLE_MTX:
@@ -170,7 +170,7 @@ def words_to_i32(w: torch.Tensor) -> torch.Tensor:
 
 def _check_pubs(a_enc: torch.Tensor) -> None:
     if a_enc.dtype != torch.uint8 or a_enc.dim() != 2 or a_enc.shape[1] != 32:
-        raise ValueError("pubkeys must be (V, 32) uint8")
+        raise _build.LaunchRefused("pubkeys must be (V, 32) uint8")
 
 
 # ------------------------------------------------------------------ K3
@@ -238,7 +238,7 @@ def build_a_tables(a_enc: torch.Tensor):
     if a_enc.device.type == "cpu":
         return build_a_tables_plain(a_enc)
     if a_enc.device.type != "cuda":
-        raise ValueError(f"unsupported device {a_enc.device}")
+        raise _build.LaunchRefused(f"unsupported device {a_enc.device}")
     a_enc = a_enc.contiguous()
     V = a_enc.shape[0]
     dev = a_enc.device
@@ -255,7 +255,7 @@ def launch_k3(a_enc, tables, valid_u8) -> None:
     if V == 0:
         return
     if tables.data_ptr() % 16:
-        raise ValueError("K3 writes table entries as 16-byte vectors: tables must be 16-byte aligned")
+        raise _build.LaunchRefused("K3 writes table entries as 16-byte vectors: tables must be 16-byte aligned")
     with torch.cuda.device(a_enc.device):
         code = _build.lib("comb").k3_build_a_tables(
             a_enc.data_ptr(), tables.data_ptr(), valid_u8.data_ptr(), V,
@@ -318,18 +318,18 @@ def pack_verdicts(ok: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
 def _check_verify_args(tables, valid, payload, digest, b_tab) -> None:
     V = payload.shape[0]
     if tables.dtype != torch.int32 or tables.shape != (V, NPOS_A, NENT_A, 3, 8):
-        raise ValueError("tables must be (V, 64, 8, 3, 8) int32")
+        raise _build.LaunchRefused("tables must be (V, 64, 8, 3, 8) int32")
     if valid.shape != (V,):
-        raise ValueError("valid must be (V,)")
+        raise _build.LaunchRefused("valid must be (V,)")
     if payload.dtype != torch.uint8 or payload.dim() != 2 or payload.shape[1] < 68:
-        raise ValueError("payload must be (V, 68 + maxm) uint8")
+        raise _build.LaunchRefused("payload must be (V, 68 + maxm) uint8")
     if digest.dtype != torch.uint8 or digest.shape != (V, 64):
-        raise ValueError("digest must be (V, 64) uint8")
+        raise _build.LaunchRefused("digest must be (V, 64) uint8")
     if b_tab.dtype != torch.int32 or b_tab.shape != (NPOS_B, NENT_B, 3, 8):
-        raise ValueError("b_tab must be (22, 4096, 3, 8) int32")
+        raise _build.LaunchRefused("b_tab must be (22, 4096, 3, 8) int32")
     devs = {t.device for t in (tables, valid, payload, digest, b_tab)}
     if len(devs) != 1:
-        raise ValueError(f"arguments on several devices: {devs}")
+        raise _build.LaunchRefused(f"arguments on several devices: {devs}")
 
 
 def verify_cached(tables, valid, payload, digest, b_tab) -> torch.Tensor:
@@ -345,7 +345,7 @@ def verify_cached(tables, valid, payload, digest, b_tab) -> torch.Tensor:
         ok = verify_cached_plain(tables, valid, payload, digest, b_tab)
         return pack_verdicts(ok, payload[:, 67] == 1)
     if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+        raise _build.LaunchRefused(f"unsupported device {dev}")
     V = payload.shape[0]
     out = torch.empty(((V + 7) // 8 + 1,), dtype=torch.uint8, device=dev)
     counters = torch.empty((2,), dtype=torch.int32, device=dev)
@@ -362,7 +362,7 @@ def launch_k4(tables, valid_u8, payload, digest, b_tab, counters, out) -> None:
         out.fill_(1)
         return
     if tables.data_ptr() % 16 or b_tab.data_ptr() % 16:
-        raise ValueError("K4 reads table entries as 16-byte vectors: tables and b_tab must be 16-byte aligned")
+        raise _build.LaunchRefused("K4 reads table entries as 16-byte vectors: tables and b_tab must be 16-byte aligned")
     with torch.cuda.device(payload.device):
         code = _build.lib("comb").k4_verify_cached(
             tables.data_ptr(), valid_u8.data_ptr(), payload.data_ptr(), width,

@@ -301,7 +301,7 @@ def verify_digest_plain(a_enc, r_enc, s_bytes, digest) -> torch.Tensor:
 def _check_rows(n, **arrays) -> None:
     for name, (t, width) in arrays.items():
         if t.dtype != torch.uint8 or t.shape != (n, width):
-            raise ValueError(f"{name} must be ({n}, {width}) uint8")
+            raise _build.LaunchRefused(f"{name} must be ({n}, {width}) uint8")
 
 
 def verify_digest(a_enc, r_enc, s_bytes, digest) -> torch.Tensor:
@@ -312,12 +312,12 @@ def verify_digest(a_enc, r_enc, s_bytes, digest) -> torch.Tensor:
                 digest=(digest, 64))
     devs = {t.device for t in (a_enc, r_enc, s_bytes, digest)}
     if len(devs) != 1:
-        raise ValueError(f"arguments on several devices: {devs}")
+        raise _build.LaunchRefused(f"arguments on several devices: {devs}")
     dev = a_enc.device
     if dev.type == "cpu":
         return verify_digest_plain(a_enc, r_enc, s_bytes, digest)
     if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+        raise _build.LaunchRefused(f"unsupported device {dev}")
     out = torch.empty((n,), dtype=torch.uint8, device=dev)
     launch_k5(a_enc.contiguous(), r_enc.contiguous(), s_bytes.contiguous(),
               digest.contiguous(), b_window(dev), out)

@@ -61,9 +61,9 @@ def pad_messages_keccak(msgs: list[bytes], max_len: int | None = None, out: np.n
 
 def _check_args(blocks: torch.Tensor, active: torch.Tensor) -> None:
     if blocks.dtype != torch.uint8 or blocks.dim() != 3 or blocks.shape[2] != RATE:
-        raise ValueError(f"blocks must be (N, nb, {RATE}) uint8")
+        raise _build.LaunchRefused(f"blocks must be (N, nb, {RATE}) uint8")
     if active.shape != blocks.shape[:1] or active.device != blocks.device:
-        raise ValueError("active must be (N,) on the blocks' device")
+        raise _build.LaunchRefused("active must be (N,) on the blocks' device")
 
 
 def _lanes(blocks: torch.Tensor) -> torch.Tensor:
@@ -131,7 +131,7 @@ def keccak256_blocks(blocks: torch.Tensor, active: torch.Tensor) -> torch.Tensor
     if blocks.device.type == "cpu":
         return keccak256_blocks_plain(blocks, active)
     if blocks.device.type != "cuda":
-        raise ValueError(f"unsupported device {blocks.device}")
+        raise _build.LaunchRefused(f"unsupported device {blocks.device}")
     blocks = blocks.contiguous()
     if blocks.data_ptr() % 8:
         blocks = blocks.clone()
@@ -149,7 +149,7 @@ def launch_k10(blocks, active, digest) -> None:
         digest.zero_()
         return
     if blocks.data_ptr() % 8 or digest.data_ptr() % 8:
-        raise ValueError("K10 reads and writes the words of 8-byte lanes: blocks and digest must be 8-byte aligned")
+        raise _build.LaunchRefused("K10 reads and writes the words of 8-byte lanes: blocks and digest must be 8-byte aligned")
     with torch.cuda.device(blocks.device):
         code = _build.lib("keccak").k10_keccak256_blocks(
             blocks.data_ptr(), active.data_ptr(), digest.data_ptr(),

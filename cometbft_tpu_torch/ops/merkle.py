@@ -98,11 +98,11 @@ def stage_leaves(leaves: list[bytes], device: torch.device, extra: np.ndarray | 
 
 def _check_tree(flat: torch.Tensor, n: int) -> None:
     if flat.dtype != torch.uint8 or flat.dim() != 2 or flat.shape[1] != 32:
-        raise ValueError("flat must be (nodes, 32) uint8")
+        raise _build.LaunchRefused("flat must be (nodes, 32) uint8")
     if n < 1:
-        raise ValueError("a tree needs at least one leaf")
+        raise _build.LaunchRefused("a tree needs at least one leaf")
     if level_offsets(n)[-1] + 1 > flat.shape[0]:
-        raise ValueError(f"a tree of {n} leaves needs {level_offsets(n)[-1] + 1} rows: its levels fall outside "
+        raise _build.LaunchRefused(f"a tree of {n} leaves needs {level_offsets(n)[-1] + 1} rows: its levels fall outside "
                          f"{flat.shape[0]} nodes")
 
 
@@ -152,9 +152,9 @@ def merkle_tree(flat: torch.Tensor, n: int) -> None:
     if flat.device.type == "cpu":
         return merkle_tree_plain(flat, n)
     if flat.device.type != "cuda":
-        raise ValueError(f"unsupported device {flat.device}")
+        raise _build.LaunchRefused(f"unsupported device {flat.device}")
     if not flat.is_contiguous() or flat.data_ptr() % 4:
-        raise ValueError("flat must be contiguous and 4-byte aligned: K8 writes it in place")
+        raise _build.LaunchRefused("flat must be contiguous and 4-byte aligned: K8 writes it in place")
     if n == 1:
         return
     with torch.cuda.device(flat.device):
@@ -171,7 +171,7 @@ def all_levels(blocks: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     sha2._check_sha256_args(blocks, active)
     n = blocks.shape[0]
     if n < 1:
-        raise ValueError("a tree needs at least one leaf")
+        raise _build.LaunchRefused("a tree needs at least one leaf")
     flat = torch.empty((level_offsets(n)[-1] + 1, 32), dtype=torch.uint8, device=blocks.device)
     if blocks.device.type == "cuda":
         sha2.launch_k7(sha2.aligned16(blocks), active.to(torch.int32).contiguous(), flat)
@@ -194,7 +194,7 @@ def root_from_leaf_hashes(hashes: torch.Tensor) -> torch.Tensor:
     node is its own root, with no level to hash, as the JAX loop makes no
     hash_level call for it."""
     if hashes.dtype != torch.uint8 or hashes.dim() != 2 or hashes.shape[1] != 32 or hashes.shape[0] < 1:
-        raise ValueError("hashes must be (n >= 1, 32) uint8")
+        raise _build.LaunchRefused("hashes must be (n >= 1, 32) uint8")
     n = hashes.shape[0]
     flat = torch.empty((level_offsets(n)[-1] + 1, 32), dtype=torch.uint8, device=hashes.device)
     flat[:n] = hashes
@@ -218,15 +218,15 @@ def merkle_gather(flat: torch.Tensor, coord: torch.Tensor) -> torch.Tensor:
     CUDA tensors, the plain version on CPU tensors.  Any shape of int32
     coordinates; the result has that shape plus (32,)."""
     if flat.dtype != torch.uint8 or flat.dim() != 2 or flat.shape[1] != 32:
-        raise ValueError("flat must be (nodes, 32) uint8")
+        raise _build.LaunchRefused("flat must be (nodes, 32) uint8")
     if coord.dtype != torch.int32 or coord.device != flat.device:
-        raise ValueError("coord must be int32 on flat's device")
+        raise _build.LaunchRefused("coord must be int32 on flat's device")
     shape = tuple(coord.shape) + (32,)
     coord = coord.reshape(-1)
     if flat.device.type == "cpu":
         return merkle_gather_plain(flat, coord).reshape(shape)
     if flat.device.type != "cuda":
-        raise ValueError(f"unsupported device {flat.device}")
+        raise _build.LaunchRefused(f"unsupported device {flat.device}")
     flat, coord = flat.contiguous(), coord.contiguous()
     if flat.data_ptr() % 16:
         flat = flat.clone()
@@ -238,7 +238,7 @@ def merkle_gather(flat: torch.Tensor, coord: torch.Tensor) -> torch.Tensor:
 def launch_k9(flat, coord, out) -> None:
     """K9 into a preallocated (K, 32) output on the current stream."""
     if flat.data_ptr() % 16 or out.data_ptr() % 16:
-        raise ValueError("K9 moves 16-byte vectors: flat and out must be 16-byte aligned")
+        raise _build.LaunchRefused("K9 moves 16-byte vectors: flat and out must be 16-byte aligned")
     with torch.cuda.device(flat.device):
         code = _build.lib("merkle").k9_merkle_gather(
             flat.data_ptr(), coord.data_ptr(), out.data_ptr(), coord.shape[0], flat.shape[0],

@@ -641,11 +641,11 @@ def _check(n, **arrays) -> torch.device:
     dev = None
     for name, (t, shape, dtypes) in arrays.items():
         if t.shape != (n,) + shape or t.dtype not in dtypes:
-            raise ValueError(f"{name} must be {(n,) + shape} of {dtypes}, got {tuple(t.shape)} {t.dtype}")
+            raise _build.LaunchRefused(f"{name} must be {(n,) + shape} of {dtypes}, got {tuple(t.shape)} {t.dtype}")
         if dev is None:
             dev = t.device
         elif t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, not {dev}")
+            raise _build.LaunchRefused(f"{name} is on {t.device}, not {dev}")
     return dev
 
 
@@ -663,7 +663,7 @@ def _check_rows(qx, qy, q_valid, r, s, is_eth, v, is_rec, addr, gtab, e=None):
         arrays["e"] = (e,) + words
     dev = _check(n, **arrays)
     if tuple(gtab.shape) != (2, 8, 2, 8) or gtab.dtype != torch.int32 or gtab.device != dev:
-        raise ValueError("gtab must be the (2, 8, 2, 8) int32 g_table on the rows' device")
+        raise _build.LaunchRefused("gtab must be the (2, 8, 2, 8) int32 g_table on the rows' device")
     return dev
 
 
@@ -748,7 +748,7 @@ def verify_batch(qx, qy, q_valid, e, r, s, is_eth, v, is_rec, addr, gtab, *,
         return verify_batch_plain(qx, qy, q_valid, e, r, s, is_eth, v, is_rec, addr, gtab,
                                   glv=glv, recover=recover)
     if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+        raise _build.LaunchRefused(f"unsupported device {dev}")
     out = torch.empty((qx.shape[0],), dtype=torch.uint8, device=dev)
     args = [_c(qx), _c(qy), _c(q_valid, torch.uint8), _c(e), _c(r), _c(s), _c(is_eth, torch.uint8),
             _c(v), _c(is_rec, torch.uint8), _c(addr), _c(gtab), out]
@@ -774,15 +774,15 @@ def hash_verify_batch(sha_blocks, sha_active, kec_blocks, kec_active, qx, qy, q_
     sha2._check_sha256_args(sha_blocks, sha_active)
     K._check_args(kec_blocks, kec_active)
     if sha_blocks.shape[0] != n or kec_blocks.shape[0] != n or sha_blocks.device != dev or kec_blocks.device != dev:
-        raise ValueError("the block arrays must hold one row per signature, on the rows' device")
+        raise _build.LaunchRefused("the block arrays must hold one row per signature, on the rows' device")
     if dev.type == "cpu":
         return hash_verify_batch_plain(sha_blocks, sha_active, kec_blocks, kec_active, qx, qy, q_valid,
                                        r, s, is_eth, v, is_rec, addr, gtab, glv=glv, recover=recover)
     if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+        raise _build.LaunchRefused(f"unsupported device {dev}")
     sha_blocks, kec_blocks = _c(sha_blocks), _c(kec_blocks)
     if sha_blocks.data_ptr() % 4 or kec_blocks.data_ptr() % 8:
-        raise ValueError("K12 reads 4-byte SHA-256 words and 8-byte Keccak lanes: align the block arrays")
+        raise _build.LaunchRefused("K12 reads 4-byte SHA-256 words and 8-byte Keccak lanes: align the block arrays")
     out = torch.empty((n,), dtype=torch.uint8, device=dev)
     # every argument bound to a name until the launch has been enqueued
     args = [sha_blocks, _c(sha_active, torch.int32), kec_blocks, _c(kec_active, torch.int32),

@@ -78,11 +78,11 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
 
 def _check_payload(payload: torch.Tensor, pubs: torch.Tensor) -> None:
     if payload.dtype != torch.uint8 or payload.dim() != 2 or payload.shape[1] < 68:
-        raise ValueError("payload must be (V, 68 + maxm) uint8")
+        raise _build.LaunchRefused("payload must be (V, 68 + maxm) uint8")
     if pubs.dtype != torch.uint8 or pubs.shape != (payload.shape[0], 32):
-        raise ValueError("pubs must be (V, 32) uint8")
+        raise _build.LaunchRefused("pubs must be (V, 32) uint8")
     if pubs.device != payload.device:
-        raise ValueError("payload and pubs must be on the same device")
+        raise _build.LaunchRefused("payload and pubs must be on the same device")
 
 
 def pad_messages_sha512(msgs: list[bytes], max_len: int | None = None):
@@ -177,7 +177,7 @@ def parse_verify_payload(payload: torch.Tensor, pubs: torch.Tensor):
         blocks, active = parse_verify_payload_plain(payload, pubs)
         return r, s, blocks, active, live
     if payload.device.type != "cuda":
-        raise ValueError(f"unsupported device {payload.device}")
+        raise _build.LaunchRefused(f"unsupported device {payload.device}")
     V, width = payload.shape
     nb = nblocks_for(width - 68)
     payload, pubs = aligned4(pad_width4(payload)), aligned4(pubs)
@@ -201,9 +201,9 @@ def launch_k1(payload, pubs, blocks, active) -> None:
     ranges at multiples of that width."""
     V, width = payload.shape
     if blocks.data_ptr() % 16:
-        raise ValueError("K1 stores 16 bytes at a time: blocks must be 16-byte aligned")
+        raise _build.LaunchRefused("K1 stores 16 bytes at a time: blocks must be 16-byte aligned")
     if width % 4 or payload.data_ptr() % 4 or pubs.data_ptr() % 4:
-        raise ValueError("K1 reads 4-byte words: the payload's width must be a multiple of 4, "
+        raise _build.LaunchRefused("K1 reads 4-byte words: the payload's width must be a multiple of 4, "
                          "and payload and pubs 4-byte aligned")
     with torch.cuda.device(payload.device):
         code = _build.lib("sha2").k1_parse_verify_payload(
@@ -264,13 +264,13 @@ def sha512_blocks(blocks: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     """(V, nb, 128) uint8 padded blocks, (V,) int32 active block counts ->
     (V, 64) uint8 digests."""
     if blocks.dtype != torch.uint8 or blocks.dim() != 3 or blocks.shape[2] != 128:
-        raise ValueError("blocks must be (V, nb, 128) uint8")
+        raise _build.LaunchRefused("blocks must be (V, nb, 128) uint8")
     if active.shape != blocks.shape[:1] or active.device != blocks.device:
-        raise ValueError("active must be (V,) on the blocks' device")
+        raise _build.LaunchRefused("active must be (V,) on the blocks' device")
     if blocks.device.type == "cpu":
         return sha512_blocks_plain(blocks, active)
     if blocks.device.type != "cuda":
-        raise ValueError(f"unsupported device {blocks.device}")
+        raise _build.LaunchRefused(f"unsupported device {blocks.device}")
     blocks = aligned16(blocks)
     active = active.to(torch.int32).contiguous()
     digest = torch.empty((blocks.shape[0], 64), dtype=torch.uint8, device=blocks.device)
@@ -291,7 +291,7 @@ def launch_k2(blocks, active, digest) -> None:
     and the sharded plane's row ranges of a (V, nb, 128) tensor
     (parallel/verify.py)."""
     if blocks.data_ptr() % 16 or digest.data_ptr() % 16:
-        raise ValueError("K2 loads and stores 16 bytes at a time: blocks and digest must be 16-byte aligned")
+        raise _build.LaunchRefused("K2 loads and stores 16 bytes at a time: blocks and digest must be 16-byte aligned")
     with torch.cuda.device(blocks.device):
         code = _build.lib("sha2").k2_sha512_blocks(
             blocks.data_ptr(), active.data_ptr(), digest.data_ptr(),
@@ -380,9 +380,9 @@ def sha256_blocks_plain(blocks: torch.Tensor, active: torch.Tensor) -> torch.Ten
 
 def _check_sha256_args(blocks: torch.Tensor, active: torch.Tensor) -> None:
     if blocks.dtype != torch.uint8 or blocks.dim() != 3 or blocks.shape[2] != 64:
-        raise ValueError("blocks must be (N, nb, 64) uint8")
+        raise _build.LaunchRefused("blocks must be (N, nb, 64) uint8")
     if active.shape != blocks.shape[:1] or active.device != blocks.device:
-        raise ValueError("active must be (N,) on the blocks' device")
+        raise _build.LaunchRefused("active must be (N,) on the blocks' device")
 
 
 def sha256_blocks(blocks: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
@@ -393,7 +393,7 @@ def sha256_blocks(blocks: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
     if blocks.device.type == "cpu":
         return sha256_blocks_plain(blocks, active)
     if blocks.device.type != "cuda":
-        raise ValueError(f"unsupported device {blocks.device}")
+        raise _build.LaunchRefused(f"unsupported device {blocks.device}")
     digest = torch.empty((blocks.shape[0], 32), dtype=torch.uint8, device=blocks.device)
     launch_k7(aligned16(blocks), active.to(torch.int32).contiguous(), digest)
     return digest
@@ -411,7 +411,7 @@ def launch_k7(blocks, active, digest) -> None:
     of a fresh tensor, and level 0 of the fresh node tensor of
     ops/merkle.all_levels."""
     if blocks.data_ptr() % 16 or digest.data_ptr() % 16:
-        raise ValueError("K7 loads and stores 16 bytes at a time: blocks and digest must be 16-byte aligned")
+        raise _build.LaunchRefused("K7 loads and stores 16 bytes at a time: blocks and digest must be 16-byte aligned")
     with torch.cuda.device(blocks.device):
         code = _build.lib("merkle").k7_sha256_blocks(
             blocks.data_ptr(), active.data_ptr(), digest.data_ptr(),

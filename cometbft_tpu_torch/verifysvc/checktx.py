@@ -19,11 +19,14 @@ The signature is over ``SIGN_DOMAIN + payload`` in both versions.
 verify_tx_signature submits each tx's one (pubkey, msg, sig) to the
 service's MEMPOOL class in its key type's mode (ed25519 -> MODE_PLAIN,
 the secp types -> MODE_SECP); the class's flush deadline merges the
-checks of concurrent senders into one launch.  A refused submit is
+checks of concurrent senders into one launch.  A refused submit, and a
+check that outlasts collect_timeout_s() (after its stall report), are
 checked on the host through the mode's host verifier.
 """
 
 from __future__ import annotations
+
+import time
 
 from .service import (
     Klass,
@@ -31,8 +34,10 @@ from .service import (
     VerifyServiceBackpressure,
     _host_verify_items,
     collect_timeout_s,
+    default_tenant,
     global_service,
     mode_for_key_type,
+    report_collect_stall,
 )
 
 MAGIC = b"\xd0sigtx1\x00"  # v1: implicit ed25519
@@ -106,8 +111,9 @@ def verify_tx_signature(
     request under ``tenant`` (None: this process's default tenant).
 
     None for an unsigned tx (no envelope), else the verdict.  On
-    backpressure the check runs on the host; an error of the batch, or
-    a wait past collect_timeout_s(), is raised."""
+    backpressure, and past collect_timeout_s() (after the stall report),
+    the check runs on the host; an error of the batch that the service
+    did not verify again is raised."""
     parsed = parse_signed_tx(tx)
     if parsed is None:
         return None
@@ -115,8 +121,15 @@ def verify_tx_signature(
     msg = SIGN_DOMAIN + payload
     mode = mode_for_key_type(key_type)  # every key type the parser emits has one
     svc = service if service is not None else global_service(device)
+    t0 = time.monotonic()
     try:
         _, per = svc.submit([(pub, msg, sig)], Klass.MEMPOOL, mode, tenant=tenant).collect(collect_timeout_s())
     except VerifyServiceBackpressure:
+        return _host_verify(mode, pub, msg, sig)
+    except TimeoutError:
+        # the service took the check but did not settle it in time: leave
+        # forensics and take the host path (its late answer is dropped)
+        report_collect_stall(Klass.MEMPOOL, tenant if tenant is not None else default_tenant(), 1,
+                             time.monotonic() - t0, service=svc)
         return _host_verify(mode, pub, msg, sig)
     return bool(per and per[0])

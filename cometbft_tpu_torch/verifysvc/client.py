@@ -11,12 +11,18 @@ service's threads.
 
 A refused submit (:class:`~.service.VerifyServiceBackpressure`) is
 verified inline on the host, in the caller's thread, through the mode's
-host verifier (span ``verify.svc_fallback``): the one host path, an
-admission decision.  An error of the batch, or a collect that outlasts
-``collect_timeout_s()``, reaches the caller as raised.
+host verifier (span ``verify.svc_fallback``): an admission decision.  A
+collect that outlasts ``collect_timeout_s()`` leaves stall forensics
+(``service.report_collect_stall``) and is verified on the host the same
+way (span ``verify.collect_stall_fallback``); the service's late answer,
+if it comes, is dropped (a ticket settles once).  An error of the batch
+that the service did not verify again (failover off, or an error that is
+not the card's) reaches the caller as raised.
 """
 
 from __future__ import annotations
+
+import time
 
 from ..utils import tracing
 
@@ -27,10 +33,13 @@ from .service import (
     Klass,
     VerifyService,
     VerifyServiceBackpressure,
+    MODE_TPU,
     _host_verify_items,
     collect_timeout_s,
     default_tenant,
     global_service,
+    peek_global_service,
+    report_collect_stall,
 )
 
 
@@ -50,12 +59,20 @@ def resolve_mode(pubkeys: list[bytes] | None, key_type: str = "ed25519", *, devi
 
     Under an active mesh (models/comb_verifier.active_mesh) every rank
     calls with the same arguments and the comb route ends in
-    collectives, so the ranks agree first: at the background-build sizes
-    one all_reduce(MIN) of "my tables are ready" decides, and every rank
-    verifies uncached until all of them hold their slice.  The agreement
-    runs on the comb path's staging thread, after every comb stage this
-    thread submitted before it, so a rank's collectives keep one order
-    however deep its caller pipelines."""
+    collectives, so the ranks agree first: one all_reduce(MIN) of "my
+    service is on the card and my tables are ready" decides, and at the
+    background-build sizes every rank verifies uncached until all of them
+    hold their slice.  The agreement runs on the comb path's staging
+    thread, after every comb stage this thread submitted before it, so a
+    rank's collectives keep one order however deep its caller pipelines.
+
+    While the device's global service is tripped to ``cpu_fallback``
+    (service.py, failover) an ed25519 set takes MODE_PLAIN with no comb
+    bind: a table build and the staging thread are work on the card, the
+    hang the trip escaped.  With no mesh it takes no agreement either.
+    Under a mesh the agreement runs at every comb size, a tripped rank
+    voting no, so no rank binds the comb route (and enters its
+    collectives) while another verifies on the host."""
     from .._device import resolve_device
     from ..crypto import batch as crypto_batch
 
@@ -66,21 +83,25 @@ def resolve_mode(pubkeys: list[bytes] | None, key_type: str = "ed25519", *, devi
         return MODE_SECP, dev
     if pubkeys is None or len(pubkeys) < crypto_batch.comb_min():
         return MODE_PLAIN, dev
-    from ..models.comb_verifier import global_cache, placement, run_in_stage_order
+    svc = peek_global_service(dev)  # never made here: a mode decision installs no scheduler
+    on_card = svc is None or svc.backend_mode == MODE_TPU
+    from ..models.comb_verifier import active_mesh, global_cache, placement, run_in_stage_order
     from ..parallel.mesh import all_true
 
+    if not on_card and active_mesh() is None:
+        return MODE_PLAIN, dev
     mesh, dev = placement(dev)
     cache = global_cache() if comb_cache is None else comb_cache
-    if len(pubkeys) >= crypto_batch.comb_async_min():
-        entry = cache.ensure_async(pubkeys, device=dev)
-        ready = entry is not None
-        if mesh is not None:
-            # one route for every rank, agreed on the collective thread
-            ready = run_in_stage_order(lambda: all_true(mesh, ready))
-        if not ready:
-            return MODE_PLAIN, dev  # tables still building
-        return ("comb", entry), dev
-    return ("comb", cache.ensure(pubkeys, device=dev)), dev
+    background = len(pubkeys) >= crypto_batch.comb_async_min()
+    entry = cache.ensure_async(pubkeys, device=dev) if on_card and background else None
+    if mesh is not None:
+        # one route for every rank, agreed on the collective thread
+        ready = on_card and (entry is not None or not background)
+        if not run_in_stage_order(lambda: all_true(mesh, ready)):
+            return MODE_PLAIN, dev  # a rank tripped, or its tables still building
+    elif background and entry is None:
+        return MODE_PLAIN, dev  # tables still building
+    return ("comb", entry if background else cache.ensure(pubkeys, device=dev)), dev
 
 
 class ServiceBatchVerifier:
@@ -182,16 +203,23 @@ class ServiceBatchVerifier:
 
     def collect(self, ticket) -> tuple[bool, list[bool]]:
         """(all_ok, per-signature) in add() order.  Waits at most
-        collect_timeout_s(); past it the TimeoutError is raised."""
+        collect_timeout_s(); past it the stall is reported and the items
+        are verified on the host."""
         kind, payload = ticket
         if kind == "sync":
             return payload
+        timeout = collect_timeout_s()
+        t0 = time.monotonic()
         try:
-            result = payload.collect(collect_timeout_s())
+            result = payload.collect(timeout)
         except VerifyServiceBackpressure:
             # stop() failed the queued ticket: the same contract as a
             # refused submit
             return self._host_fallback("verify.svc_fallback")
+        except TimeoutError:
+            report_collect_stall(self._klass, self._tenant, len(self._items), time.monotonic() - t0,
+                                 service=self._svc)
+            return self._host_fallback("verify.collect_stall_fallback")
         self.last_timings = dict(payload.timings)
         return result
 

@@ -19,6 +19,15 @@ inputs:
     SERVICE_CALLS (phase 24(a)); ``service_cost_ms`` is their difference,
     and ``split`` the verifiers' ``last_timings`` p50.
 
+With ``--trace`` each worker also takes TRACE_CALLS more warm
+``verify_commit`` calls with timing wrappers around the functions every
+tree has (the comb verifier's ``add``, ``submit``, ``collect`` and
+``_fill_payload``, the service's ``_dispatch`` and ``_settle``, the
+client's ``submit`` and ``collect``) and reports the last call's
+timeline: each wrapped call's thread, start and end from the call's
+start (ms), and the ``add`` calls summed by thread.  It needs no tracer,
+so it reads trees from before the port had one.
+
 The first worker writes the seeded keys' public keys, and the commit's
 signatures and timestamps by validator position, to ``--inputs``;
 later workers read them (no host signing).  A tree's kernels are built by its first worker; a
@@ -27,7 +36,7 @@ library already built by another tree from the same sources (the same
 and power limit, each reading, and one JSON line of every reading and
 each tree's median.  Needs the card and nvcc; from the repo's root:
 
-    python3 scripts/torch_service_ab.py NAME=DIR ... [--rounds 4]
+    python3 scripts/torch_service_ab.py NAME=DIR ... [--rounds 4] [--trace]
 
 e.g. ``parent=out/ab18/parent this=.``.
 """
@@ -53,6 +62,56 @@ HEIGHT = 1_000_000
 TS_SECONDS = 1_700_000_000
 VERIFY_CALLS = 20  # phase 4's verify_commit readings, after 2 warm calls
 SERVICE_CALLS = 12  # phase 24(a)'s rounds in turns; the first 2 are dropped
+TRACE_CALLS = 3  # --trace: warm verify_commit calls with the timing wrappers; the last one is reported
+
+
+def traced_call(run, cv, S, client) -> dict:
+    """The timeline of one ``run()`` (a verify_commit) under timing
+    wrappers: {"wall_ms", "spans": [(thread, name, start ms, end ms)],
+    "add_ms": {thread: summed ms of CombBatchVerifier.add}}."""
+    import threading
+
+    log, adds, lock = [], {}, threading.Lock()
+    t_base = [0.0]
+
+    def wrap(owner, attr, name, summed=False):
+        real = getattr(owner, attr)
+
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                t1 = time.perf_counter()
+                th = threading.current_thread().name
+                with lock:
+                    if summed:
+                        adds[th] = adds.get(th, 0.0) + (t1 - t0) * 1e3
+                    else:
+                        log.append((th, name, (t0 - t_base[0]) * 1e3, (t1 - t_base[0]) * 1e3))
+
+        setattr(owner, attr, call)
+        return owner, attr, real
+
+    saved = [wrap(cv, "_fill_payload", "fill"),
+             wrap(cv.CombBatchVerifier, "add", "comb.add", summed=True),
+             wrap(cv.CombBatchVerifier, "submit", "comb.submit"),
+             wrap(cv.CombBatchVerifier, "collect", "comb.collect"),
+             wrap(S.VerifyService, "_dispatch", "svc.dispatch"),
+             wrap(S.VerifyService, "_settle", "svc.settle"),
+             wrap(client.ServiceBatchVerifier, "submit", "client.submit"),
+             wrap(client.ServiceBatchVerifier, "collect", "client.collect")]
+    try:
+        for _ in range(TRACE_CALLS):
+            log.clear()
+            adds.clear()
+            t_base[0] = time.perf_counter()
+            run()
+            wall = (time.perf_counter() - t_base[0]) * 1e3
+    finally:
+        for owner, attr, real in saved:
+            setattr(owner, attr, real)
+    return {"wall_ms": wall, "spans": sorted(log, key=lambda e: e[2]), "add_ms": adds}
 
 
 def smi_line() -> str:
@@ -79,7 +138,7 @@ def make_inputs(T, host, PRECOMMIT_TYPE, Timestamp) -> dict:
     return {"pubs": [k.pub_key().data for k in keys], "bid": (bid_hash, psh_hash), "nanos": nanos, "sigs": sigs}
 
 
-def worker(tree: str, inputs_path: str) -> dict:
+def worker(tree: str, inputs_path: str, trace: bool = False) -> dict:
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import torch
@@ -151,12 +210,17 @@ def worker(tree: str, inputs_path: str) -> dict:
             split[route].append(dict(bv.last_timings))
     p50 = {r: float(np.median(w[2:])) for r, w in turns.items()}
     split = {r: {k: float(np.median([p[k] for p in v[2:] if k in p])) for k in v[-1]} for r, v in split.items()}
+    from cometbft_tpu_torch.verifysvc import client
     from cometbft_tpu_torch.verifysvc import service as S
 
+    out = {"verify_commit_ms": float(np.median(walls)), "verify_commit_walls_ms": walls,
+           "service_ms": p50["service"], "direct_ms": p50["direct"],
+           "service_cost_ms": p50["service"] - p50["direct"], "split": split, "setup_s": setup_s}
+    if trace:
+        out["trace"] = traced_call(lambda: validation.verify_commit(CHAIN_ID, vals, bid, HEIGHT, good, **kw),
+                                   cv, S, client)
     S.reset_global_service()
-    return {"verify_commit_ms": float(np.median(walls)), "verify_commit_walls_ms": walls,
-            "service_ms": p50["service"], "direct_ms": p50["direct"],
-            "service_cost_ms": p50["service"] - p50["direct"], "split": split, "setup_s": setup_s}
+    return out
 
 
 def share_builds(trees: dict) -> None:
@@ -183,10 +247,11 @@ def main() -> int:
     ap.add_argument("trees", nargs="*", help="NAME=DIR")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--inputs", default=os.path.join(ROOT, "build", "service_ab_inputs.pkl"))
+    ap.add_argument("--trace", action="store_true", help="also report one traced verify_commit a reading")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(worker(args.worker, args.inputs)))
+        print(json.dumps(worker(args.worker, args.inputs, args.trace)))
         return 0
     trees = dict(t.split("=", 1) for t in args.trees)
     if len(trees) < 1:
@@ -203,7 +268,8 @@ def main() -> int:
         share_builds(trees)
         t0 = time.perf_counter()
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", trees[name],
-                              "--inputs", args.inputs], capture_output=True, text=True, timeout=900)
+                              "--inputs", args.inputs] + (["--trace"] if args.trace else []),
+                             capture_output=True, text=True, timeout=900)
         if out.returncode != 0:
             print(out.stdout[-4000:], out.stderr[-4000:], sep="\n", file=sys.stderr)
             raise RuntimeError(f"the worker of {name} exited {out.returncode}")
@@ -213,6 +279,11 @@ def main() -> int:
         print(f"{name}: verify_commit p50 {rec['verify_commit_ms']:.2f} ms; service {rec['service_ms']:.2f} ms, "
               f"direct {rec['direct_ms']:.2f} ms, cost {rec['service_cost_ms']:.2f} ms a commit; "
               f"{rec['process_s']:.1f} s", flush=True)
+        if "trace" in rec:
+            tr = rec["trace"]
+            print(f"{name}: traced verify_commit {tr['wall_ms']:.2f} ms; adds by thread (ms) "
+                  + json.dumps({k: round(v, 2) for k, v in tr["add_ms"].items()}) + "; "
+                  + "; ".join(f"{th} {nm} {a:.2f}-{b:.2f}" for th, nm, a, b in tr["spans"]), flush=True)
     median = {k: {m: float(np.median([r[m] for r in v]))
                   for m in ("verify_commit_ms", "service_ms", "direct_ms", "service_cost_ms")}
               for k, v in readings.items()}

@@ -1390,9 +1390,9 @@ def test_staging_thread_on_the_card(dev, svc_stop):
     where, out = [], {}
     real_fill = cv._fill_payload
 
-    def spy(slab, items, rows):
+    def spy(slab, *packed_and_rows):
         where.append(threading.current_thread().name)
-        return real_fill(slab, items, rows)
+        return real_fill(slab, *packed_and_rows)
 
     def run(b):
         bv = cv.CombBatchVerifier(entry)
@@ -1478,3 +1478,135 @@ def test_prove_on_the_card(dev, svc_stop):
     got_root, got = proof_server.prove(leaves, idx, device=dev)
     assert got_root == root and got == [proofs[i] for i in idx]
     assert _delta(before) == {"sha256_blocks": 1, "merkle_tree": 1, "merkle_gather": 1}
+
+
+def _failover_commit(n, height, flip=None):
+    """A signed commit of ``n`` validators; ``flip`` the row whose
+    signature gets a flipped byte."""
+    from cometbft_tpu_torch import types as T
+    from cometbft_tpu_torch.crypto import ed25519 as host
+    from cometbft_tpu_torch.wire.canonical import PRECOMMIT_TYPE, Timestamp
+
+    rng = np.random.default_rng(height)
+    keys = [host.PrivKey.from_seed(rng.bytes(32)) for _ in range(n)]
+    vals = T.ValidatorSet([T.Validator(k.pub_key(), 10) for k in keys])
+    by_addr = {k.pub_key().address(): k for k in keys}
+    bid = T.BlockID(hash=rng.bytes(32), part_set_header=T.PartSetHeader(total=1, hash=rng.bytes(32)))
+    sigs = []
+    for i, v in enumerate(vals.validators):
+        vote = T.Vote(type=PRECOMMIT_TYPE, height=height, round=0, block_id=bid,
+                      timestamp=Timestamp(seconds=1, nanos=1000 + i), validator_address=v.address, validator_index=i)
+        sig = by_addr[v.address].sign(vote.sign_bytes("c"))
+        vote.signature = sig[:40] + bytes([sig[40] ^ 1]) + sig[41:] if i == flip else sig
+        sigs.append(vote.to_commit_sig())
+    return vals, bid, T.Commit(height=height, round=0, block_id=bid, signatures=sigs)
+
+
+def test_failover_trips_and_restores_on_the_card(dev, svc_stop, monkeypatch, tmp_path):
+    """Phase 26 at a small size: with wedge_device armed, a 40-validator
+    commit through the card's global service (K2 -> K5) trips it under a
+    1-s batch deadline and is answered on the host with the card's blame;
+    one artifact; the wedge cleared, the real subprocess probe starts
+    CUDA on the card twice and the service restores; then a comb commit
+    launches K1, K2 and K4 once each.  fail_dispatch is verified on the
+    host without a trip."""
+    import time
+
+    from cometbft_tpu_torch.models import comb_verifier as cv
+    from cometbft_tpu_torch.types import validation
+    from cometbft_tpu_torch.utils import fail
+    from cometbft_tpu_torch.verifysvc import service as S
+
+    monkeypatch.setenv("COMETBFT_TPU_COMB_MIN", "64")
+    monkeypatch.setenv("COMETBFT_TPU_COMB_ASYNC_MIN", "100000")
+    monkeypatch.setenv("COMETBFT_TPU_FAILOVER_BATCH_DEADLINE_MS", "1000")
+    monkeypatch.setenv("COMETBFT_TPU_FAILOVER_PROBE_PERIOD_MS", "500")
+    monkeypatch.setenv("COMETBFT_TPU_FAILOVER_PROBE_TIMEOUT_MS", "120000")
+    S.reset_global_service()
+    svc = S.global_service(dev)
+    svc.artifact_dir = str(tmp_path)
+    vals, bid, bad = _failover_commit(40, 11, flip=9)
+
+    def light():
+        try:
+            validation.verify_commit("c", vals, bid, 11, bad, device=dev)
+        except validation.CommitVerificationError as e:
+            return str(e)
+
+    before = _counts()
+    want = light()
+    assert want.startswith("wrong signature (#9):") and _delta(before)["verify_batch"] == 1
+    fail.arm("fail_dispatch")
+    try:
+        assert light() == want
+    finally:
+        fail.clear("fail_dispatch")
+    assert svc.stats()["failover"]["trips"] == 0
+    fail.arm("wedge_device")
+    try:
+        assert light() == want
+        deadline = time.monotonic() + 60
+        while svc.stats()["failover"]["last_artifact"] is None:
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+    finally:
+        fail.clear("wedge_device")
+    fo = svc.stats()["failover"]
+    assert fo["trips"] == 1 and svc.backend_mode == "cpu_fallback" and len(list(tmp_path.iterdir())) == 1
+    deadline = time.monotonic() + 300
+    while svc.backend_mode != "tpu":
+        assert time.monotonic() < deadline, svc.stats()["failover"]
+        time.sleep(0.1)
+    cvals, cbid, good = _failover_commit(70, 12)
+    cache = cv.ValsetCombCache()
+    cache.ensure(cvals.pub_keys_bytes(), device=dev)
+    before = _counts()
+    validation.verify_commit("c", cvals, cbid, 12, good, device=dev, comb_cache=cache)
+    assert _delta(before) == {"parse_verify_payload": 1, "sha512_blocks": 1, "verify_cached": 1}
+
+
+def test_the_real_probe_starts_cuda_on_the_card(dev):
+    from cometbft_tpu_torch.utils import healthmon
+
+    res = healthmon.probe_devices(120.0, device_index=dev.index if dev.index is not None else 0)
+    assert res.ok and res.detail == torch.cuda.get_device_name(0) and not res.timed_out
+
+
+def test_the_fill_on_the_card_equals_the_one_shot_assembly(dev, svc_stop):
+    """The comb stage on the card fills its pinned slab as the one-shot
+    assembly does (every fast path: equal and mixed lengths, contiguous
+    and scattered rows), and the verdicts follow."""
+    from cometbft_tpu_torch.crypto import ed25519 as host
+    from cometbft_tpu_torch.models import comb_verifier as cv
+
+    rng = np.random.default_rng(19)
+    keys = [host.PrivKey.from_seed(rng.bytes(32)) for _ in range(96)]
+    pubs = [k.pub_key().data for k in keys]
+    entry = cv.ValsetCombCache().ensure(pubs, device=dev)
+    filled = []
+    real_fill = cv._fill_payload
+
+    def capture(slab, *packed_and_rows):
+        out = real_fill(slab, *packed_and_rows)
+        filled.append(out.copy())
+        return out
+
+    cv._fill_payload = capture
+    try:
+        for lens, rows in (([125], range(96)), ([125, 126], range(96)), ([60, 127, 1], rng.permutation(96)[:50])):
+            items = []
+            for j, i in enumerate(rows):
+                m = rng.bytes(lens[j % len(lens)])
+                items.append((pubs[i], m, keys[i].sign(m)))
+            bv = cv.CombBatchVerifier(entry)
+            for it in items:
+                bv.add(*it)
+            assert bv.verify() == (True, [True] * len(items))
+            want = cv.assemble_payload(items, np.asarray(list(rows), dtype=np.int64), entry.vpad)
+            got = filled[-1]
+            assert got.shape == want.shape
+            live = got[:, 67] == 1
+            assert np.array_equal(live, want[:, 67] == 1)
+            assert np.array_equal(got[live], want[live])
+    finally:
+        cv._fill_payload = real_fill

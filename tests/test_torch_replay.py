@@ -238,9 +238,9 @@ def test_staging_runs_tickets_in_submission_order(stream_set):
     submitted, staged, results = [], [], {}
     real_fill = cv._fill_payload
 
-    def logged_fill(slab, items, rows):
-        staged.append(_msg_id(items))
-        return real_fill(slab, items, rows)
+    def logged_fill(slab, sigs, msgs, lens, rows):
+        staged.append(_msg_id([(None, bytes(msgs[: int(lens[0])]), None)]))
+        return real_fill(slab, sigs, msgs, lens, rows)
 
     def sender(t):
         for j in range(4):
@@ -271,15 +271,16 @@ def test_staging_runs_tickets_in_submission_order(stream_set):
 def test_a_failed_fill_reaches_collect_and_retires_its_slab(stream_set):
     """A fault planted in the fill: submit() still returns a ticket, the
     error reaches collect(), and the slab goes back to the entry's pool
-    retired (no live row, no layout kept); through the service the
-    batch's ticket fails with it (ROADMAP C)."""
+    retired (no live row, no layout kept); through the service with
+    failover off the batch's ticket fails with it (with failover on the
+    batch is verified again on the host: tests/test_torch_failover.py)."""
     keys, pubs, entry = stream_set
     items = _commit(keys, pubs, 40)
     width = cv._payload_width(items)
     real_fill = cv._fill_payload
 
-    def faulty_fill(slab, items_, rows):
-        real_fill(slab, items_, rows)
+    def faulty_fill(slab, *packed_and_rows):
+        real_fill(slab, *packed_and_rows)
         raise RuntimeError("fill failed")
 
     entry._slabs.pop(width, None)
@@ -294,7 +295,7 @@ def test_a_failed_fill_reaches_collect_and_retires_its_slab(stream_set):
             bv.collect(ticket)
         (slab,) = entry._slabs[width]
         assert slab.layout is None and slab.dirty is None and not slab.buf[:, 67].any()
-        svc = PS.VerifyService(device="cpu")
+        svc = PS.VerifyService(device="cpu", failover=False)
         try:
             t = svc.submit(items, PS.Klass.BLOCKSYNC, ("comb", entry))
             with pytest.raises(RuntimeError, match="fill failed"):

@@ -256,11 +256,9 @@ SITES = {
     "verifysvc/client.py": "verifysvc/client.py",
     "blocksync/reactor.py:_top_up_verify_pipeline": "blocksync/replay.py",
 }
-# not opened by the port, by name: the failover watchdog and the collect
-# stall (ROADMAP A4); verify.host_route marks the JAX host route by batch
-# width, which the port does not have (ROADMAP C)
-NOT_PORTED = {"verify.failover", "verify.failover.reverify", "verify.collect_stall",
-              "verify.collect_stall_fallback", "verify.host_route"}
+# not opened by the port, by name: verify.host_route marks the JAX host
+# route by batch width, which the port does not have (ROADMAP C)
+NOT_PORTED = {"verify.host_route"}
 
 
 def span_names(path: pathlib.Path, func: str | None = None) -> set[str]:

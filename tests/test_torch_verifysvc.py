@@ -528,33 +528,70 @@ class _Boom(RuntimeError):
     pass
 
 
+def _faulty_bv(where):
+    """A fake verifier class whose dispatch, submit or collect fails."""
+
+    class Faulty(_FakeBV):
+        _entry = None
+
+        def submit(self):
+            if where == "submit":
+                raise _Boom("submit failed")
+            return ("dev", None) if where == "collect" else super().submit()
+
+        def collect(self, ticket):
+            if where == "collect":
+                raise _Boom("collect failed")
+            return super().collect(ticket)
+
+    def make(mode):
+        if where == "dispatch":
+            raise _Boom("dispatch failed")
+        return Faulty()
+
+    return make
+
+
+@pytest.mark.parametrize("where", ["dispatch", "submit", "collect"])
+def test_errors_are_verified_again_on_the_host_as_the_jax_service(services, where, tmp_path):
+    """With failover on (the default of both packages), a dispatch,
+    submit or collect error sends the batch to the host path: the same
+    verdicts as the JAX service, in each request's add() order, the same
+    count of host re-verifies by cause, no trip; the scheduler keeps
+    serving."""
+    from cometbft_tpu.utils.metrics import hub as jhub
+
+    from cometbft_tpu_torch.utils.metrics import hub as phub
+
+    cause = {"dispatch": "dispatch_error", "submit": "submit_error", "collect": "collect_error"}[where]
+    items = _ed_items(b"again", 3, bad=(1,))
+    got = {}
+    for pkg, hub, extra in ((PS, phub, {"device": "cpu"}), (JS, jhub, {})):
+        s = services(pkg.VerifyService(deadlines_ms={k: 30 for k in pkg.Klass}, failover=True,
+                                       artifact_dir=str(tmp_path), **extra))
+        s._make_verifier = _faulty_bv(where)
+        before = hub().verify_svc_host_reverify.value(cause=cause)
+        tickets = [s.submit([it], pkg.Klass.CONSENSUS, pkg.MODE_PLAIN) for it in items]
+        res = [t.collect(WAIT) for t in tickets]
+        got[pkg] = (res, hub().verify_svc_host_reverify.value(cause=cause) - before,
+                    s.stats()["failover"]["trips"], s.backend_mode)
+        s._make_verifier = lambda mode: _FakeBV()
+        assert s.submit([(b"k", b"after-ok", b"s")], pkg.Klass.CONSENSUS).collect(WAIT) == (True, [True])
+    assert got[PS] == got[JS]
+    res, reverified, trips, mode = got[PS]
+    assert res == [(True, [True]), (False, [False]), (True, [True])]
+    assert reverified >= 1 and trips == 0 and mode == "tpu"
+
+
 @pytest.mark.parametrize("where", ["dispatch", "submit", "collect"])
 def test_errors_fail_the_tickets_as_the_jax_service(services, where):
-    """A dispatch, submit or collect error fails every ticket of the
-    batch with that error, in both services (the JAX one with failover
-    off), and the scheduler keeps serving."""
-    for pkg, extra in ((PS, {"device": "cpu"}), (JS, {"failover": False})):
+    """With failover off, a dispatch, submit or collect error fails every
+    ticket of the batch with that error, in both services, and the
+    scheduler keeps serving."""
+    for pkg, extra in ((PS, {"device": "cpu", "failover": False}), (JS, {"failover": False})):
         s = services(pkg.VerifyService(deadlines_ms={k: 30 for k in pkg.Klass}, **extra))
 
-        class Faulty(_FakeBV):
-            _entry = None
-
-            def submit(self):
-                if where == "submit":
-                    raise _Boom("submit failed")
-                return ("dev", None) if where == "collect" else super().submit()
-
-            def collect(self, ticket):
-                if where == "collect":
-                    raise _Boom("collect failed")
-                return super().collect(ticket)
-
-        def make(mode):
-            if where == "dispatch":
-                raise _Boom("dispatch failed")
-            return Faulty()
-
-        s._make_verifier = make
+        s._make_verifier = _faulty_bv(where)
         tickets = [s.submit([(b"k", b"m%d-ok" % i, b"s")], pkg.Klass.MEMPOOL, pkg.MODE_SECP) for i in range(3)]
         for t in tickets:
             with pytest.raises(_Boom, match=f"{where} failed"):
@@ -575,31 +612,53 @@ def test_stop_fails_stranded_tickets_as_the_jax_service(services):
         assert s.submit([], pkg.Klass.MEMPOOL).collect(0) == (False, [])
 
 
-def test_collect_timeout_is_raised_not_host_verified(services, monkeypatch):
-    """The port raises the TimeoutError of a wait past
-    COMETBFT_TPU_VERIFYSVC_COLLECT_TIMEOUT_MS (the JAX client verifies on
-    the host there; ROADMAP C)."""
+def test_collect_timeout_reports_the_stall_and_takes_the_host_path(services, monkeypatch, tmp_path):
+    """Past COMETBFT_TPU_VERIFYSVC_COLLECT_TIMEOUT_MS a ServiceBatchVerifier
+    and a CheckTx check leave stall forensics (one artifact, rate-limited)
+    and verify on the host, with the JAX client's verdicts; the service's
+    late answer is dropped."""
+    import tempfile
+
+    from cometbft_tpu.verifysvc.client import ServiceBatchVerifier as JClient
+
+    from cometbft_tpu_torch.utils.metrics import hub as phub
+
     monkeypatch.setenv("COMETBFT_TPU_VERIFYSVC_COLLECT_TIMEOUT_MS", "200")
-    svc = services(PS.VerifyService(device="cpu"))
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path / "jax"))  # the JAX client's artifacts
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "port").mkdir()
     release = threading.Event()
 
     class Stuck(_FakeBV):
+        _entry = object()  # submits on the scheduler: the wait is the collector's
+
         def submit(self):
-            return ("dev", None)
+            return ("dev", super().submit()[1])
 
         def collect(self, ticket):
             release.wait(WAIT)
-            return super().collect(ticket)
+            return ticket[1]
 
-    svc._make_verifier = lambda mode: Stuck()
-    bv = ServiceBatchVerifier(PS.Klass.CONSENSUS, PS.MODE_PLAIN, service=svc)
-    for it in _ed_items(b"stuck", 2):
-        bv.add(*it)
-    with pytest.raises(TimeoutError):
-        bv.verify()
-    with pytest.raises(TimeoutError):
-        PC.verify_tx_signature(PC.make_signed_tx(CHECKTX_KEYS["ed25519"](), b"t"), service=svc)
+    items = _ed_items(b"stuck", 3, bad=(2,))
+    tx = PC.make_signed_tx(CHECKTX_KEYS["ed25519"](), b"t")
+    got = {}
+    for pkg, client, ctx in ((PS, ServiceBatchVerifier, PC), (JS, JClient, JC)):
+        pkg._reset_stall_gate()
+        extra = {"device": "cpu", "artifact_dir": str(tmp_path / "port")} if pkg is PS else {}
+        svc = services(pkg.VerifyService(failover=False, **extra))
+        svc._make_verifier = lambda mode: Stuck()
+        before = phub().verify_svc_collect_timeout.value(**{"class": "consensus"})
+        bv = client(pkg.Klass.CONSENSUS, pkg.MODE_PLAIN, service=svc)
+        for it in items:
+            bv.add(*it)
+        got[pkg] = (bv.verify(), ctx.verify_tx_signature(tx, service=svc))
+        if pkg is PS:
+            assert phub().verify_svc_collect_timeout.value(**{"class": "consensus"}) == before + 1
     release.set()
+    assert got[PS] == got[JS] == (JS._host_verify_items(items), True)
+    arts = list((tmp_path / "port").iterdir())
+    assert len(arts) == 1 and "collect() deadline expired: class=consensus" in arts[0].read_text()
+    assert len(list((tmp_path / "jax").iterdir())) == 1
 
 
 def test_client_backpressure_takes_the_host_path(services):

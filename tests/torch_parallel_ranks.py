@@ -368,8 +368,89 @@ def run_pipeline(mesh, case: dict) -> dict:
         cv.set_active_mesh(None)
 
 
+def run_failover_tokens(mesh, case: dict) -> dict:
+    """Comb requests under the mesh hold a staging place from submit
+    (models/comb_verifier.reserve_stage), and no rank verifies one on the
+    host alone (verifysvc/service.py, failover).  Each failover path
+    fails its tickets and gives its place back, so every later comb batch
+    of the rank still runs: a fail_dispatch, a comb batch while the
+    service is tripped (MeshFailoverRefused), a batch failed with an error
+    that is not the card's (BuildError), each followed by a comb batch
+    through the staging thread and its collectives.  Then a trip on rank
+    0 alone: resolve_mode's agreement sends both ranks uncached (rank 0's
+    batch to its host, rank 1's to its kernels' path), and both back to
+    the comb route once rank 0 restores.  Returns the verdicts or errors,
+    the routes and the service's failover stats."""
+    from cometbft_tpu_torch import _build
+    from cometbft_tpu_torch.models import comb_verifier as cv
+    from cometbft_tpu_torch.utils import fail
+    from cometbft_tpu_torch.verifysvc import Klass, ServiceBatchVerifier, resolve_mode
+    from cometbft_tpu_torch.verifysvc import service as S
+
+    cv.set_active_mesh(mesh)
+    svc = S.VerifyService(device="cpu", failover=True, probe_fn=lambda _t: None)
+    saved = os.environ.get("COMETBFT_TPU_COMB_MIN")
+    os.environ["COMETBFT_TPU_COMB_MIN"] = "4"
+    try:
+        cache = cv.ValsetCombCache()
+        entry = cache.ensure(case["pubs"], device=mesh.device)
+        mode = ("comb", entry)
+
+        def verify(items, m=mode, service=svc):
+            bv = ServiceBatchVerifier(Klass.CONSENSUS, m, service=service)
+            for it in items:
+                bv.add(*it)
+            try:
+                return bv.verify()
+            except (_build.BuildError, fail.InjectedFault, S.MeshFailoverRefused) as e:
+                return f"{type(e).__name__}: {e}"
+
+        good, bad = comb_items(case), comb_items(case, TAMPER)
+        out = {"before": verify(bad)}
+        fail.arm("fail_dispatch")
+        try:
+            out["fail_dispatch"] = verify(bad)
+        finally:
+            fail.clear("fail_dispatch")
+        out["after_fail_dispatch"] = verify(good)
+        svc.trip_to_cpu("test: tripped under the mesh")
+        out["tripped"] = verify(bad)
+        svc._restore_tpu()
+        out["after_restore"] = verify(bad)
+        real = svc._make_verifier
+
+        def broken(m):
+            raise _build.BuildError("nvcc failed for comb.cu")
+
+        svc._make_verifier = broken
+        out["build_error"] = verify(good)
+        svc._make_verifier = real
+        out["after_build_error"] = verify(good)
+        fo = svc.stats()["failover"]
+        out["failover"] = {k: fo[k] for k in ("trips", "restores", "backend_mode")}
+        g = S.global_service(mesh.device)
+        g._probe_fn = lambda _t: None
+        routes, asym = [], []
+        for step in ("trip", "restore"):
+            if mesh.rank == 0:
+                g.trip_to_cpu("test: rank 0 alone") if step == "trip" else g._restore_tpu()
+            m, _ = resolve_mode(case["pubs"], device=mesh.device, comb_cache=cache)
+            routes.append(m[0])
+            asym.append(verify(bad, m, g))
+        out["asym_routes"], out["asym"] = routes, asym
+        return out
+    finally:
+        svc.stop()
+        cv.set_active_mesh(None)
+        if saved is None:
+            os.environ.pop("COMETBFT_TPU_COMB_MIN", None)
+        else:
+            os.environ["COMETBFT_TPU_COMB_MIN"] = saved
+
+
 TASKS = {"entries": run_entries, "merkle": run_merkle, "comb": run_comb,
-         "deadlock_guard": run_deadlock_guard, "pipeline": run_pipeline}
+         "deadlock_guard": run_deadlock_guard, "pipeline": run_pipeline,
+         "failover_tokens": run_failover_tokens}
 
 
 def init_group(rank: int, world: int, store: str) -> None:
