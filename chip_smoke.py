@@ -10,7 +10,9 @@ CheckTx batch of the Cosmos, Ethereum and ecrecover wire shapes, and the
 BLS12-381 lane on a 10,000-validator aggregate commit, the sharded
 verify plane over torch.distributed at world 1 and 4, the verify
 service under load, and the blocksync replay of 5,000-validator commits
-through the comb path's staging thread, and the service's failover
+through the comb path's staging thread, the light client's bisection,
+store and divergence detector at 10,000 validators with the attack
+evidence they produce and its check, and the service's failover
 watchdog tripping to the host and restoring — on one NVIDIA card, holds
 each kernel against its plain PyTorch version, and prints the card's
 numbers.  Every path that
@@ -122,7 +124,7 @@ it and read just after it.
      fails);
  21. one JSON line with every kernel (rows 23-26 of the kernel table too:
      the sharded entries, their per-rank kernels' bounds summed), then the
-     contract line; it runs after phases 22-26:
+     contract line; it runs after phases 22-27 (27 before 26):
  22. the sharded plane at world 1 (a one-rank NCCL group in this
      process, the comb path bound with set_active_mesh): verify_commit
      over phase 2's set on the good and the planted commit,
@@ -169,6 +171,25 @@ it and read just after it.
      2 and of phase 4's verify_commit under build/, the ms a call of
      every verify.* span and the share of the wall in which the staging
      thread's slab fill overlaps the caller's own work;
+ 27. the light client at 10,000 validators (light.Client over a MemDB
+     LightStore, a chain of 1,000 heights whose set moves by 1,000 keys
+     every 100, blocks signed only at the heights asked for): (a) a
+     SKIPPING sync 1 -> 1,000 with one honest witness, the trace equal to
+     the host's replay of the bisection from the sets' overlaps, every
+     stored block decoded back, each new set's hash on K7 + K8 once, each
+     hop's commit checks on K2 -> K5 or K1 -> K2 -> K4, its ms and
+     launches, the store's decode ms of a 10,000-validator block; cold,
+     then from a fresh store with the tables warm (K4, no K5); (b) a
+     lunatic primary forked at 700 (another app_hash, the same keys):
+     ErrLightClientAttackDetected with evidence to both sides, the
+     evidence's common height, byzantine validators and total power
+     against a host computation, evidence.verify_light_client_attack on
+     the honest chain under CONSENSUS (a trusting and a full check of
+     10,000 rows, every signature counted) passing, and refusing the
+     evidence with its power + 1 and with a byzantine validator dropped;
+     one duplicate vote through verify_duplicate_vote; (c) BASELINE.json
+     config 2: a SEQUENTIAL sync over 64 heights of 150 validators, every
+     hop K2 -> K5, its p50;
  26. the verify service's failover, on the card's global service: (a)
      phase 4's verify_commit with failover on (the watchdog ticking, the
      health sentinel started) and off, in turns, their p50s; (b)
@@ -2770,6 +2791,305 @@ def failover_phases(dev, log, require, zero_counts, read_counts, d):
     return rec
 
 
+LIGHT_HEIGHTS = 1_000  # heights of phase 27's chain (its sets of V_MAIN)
+LIGHT_SHIFT = 1_000  # keys the set's window moves ...
+LIGHT_EVERY = 100  # ... every this many heights
+LIGHT_FORK = 700  # the lunatic primary's first forked height
+LIGHT_SEQ_HEIGHTS = 64  # (c): BASELINE.json config 2's sequential sync over V_LIGHT validators
+
+
+def light_phases(dev, log, require, zero_counts, read_counts, d):
+    """Phase 27 of main(): the light client at 10,000 validators over a
+    chain whose set moves by 1,000 keys every 100 heights.  (a) a SKIPPING
+    sync of 1,000 heights over a MemDB store with one honest witness:
+    the trace against the host's replay of the bisection, every stored
+    block decoded back, each new set's hash on K7 + K8, each hop's
+    commit checks on K2 -> K5 or K1 -> K2 -> K4; cold, then from a fresh
+    store with the tables warm; (b) a lunatic primary forked at
+    LIGHT_FORK: the attack detected, its evidence against a host
+    computation, verify_light_client_attack (CONSENSUS, every signature
+    counted) passing and refusing two tamperings, one duplicate vote;
+    (c) BASELINE.json config 2: a SEQUENTIAL sync over 64 heights of a
+    150-validator chain, every hop K2 -> K5 at 256 lanes.  Returns the
+    record."""
+    import copy
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_light_corpus as LCo
+
+    from cometbft_tpu_torch import light
+    from cometbft_tpu_torch import types as T
+    from cometbft_tpu_torch.evidence import verify as EV
+    from cometbft_tpu_torch.models import comb_verifier as cv
+    from cometbft_tpu_torch.models.verifier import _next_bucket
+    from cometbft_tpu_torch.ops import ed25519 as E
+    from cometbft_tpu_torch.store import MemDB
+    from cometbft_tpu_torch.types.evidence import DuplicateVoteEvidence
+    from cometbft_tpu_torch.verifysvc import global_service
+    from cometbft_tpu_torch.wire.canonical import PRECOMMIT_TYPE
+
+    t_phase = time.perf_counter()
+    smi = d["smi"]
+    rec = {}
+    chain_id = CHAIN_ID + "-light"
+    t0 = time.perf_counter()
+    keys = LCo.make_keys(SEED + 27, LIGHT_SHIFT * (LIGHT_HEIGHTS // LIGHT_EVERY) + V_MAIN)
+    honest = LCo.Chain(chain_id, keys, LIGHT_HEIGHTS, V_MAIN, LIGHT_SHIFT, LIGHT_EVERY)
+    forked = LCo.Chain(chain_id, keys, LIGHT_HEIGHTS, V_MAIN, LIGHT_SHIFT, LIGHT_EVERY, fork_from=LIGHT_FORK,
+                       base=honest)
+    want = LCo.expected_trace(honest, 1, LIGHT_HEIGHTS)
+    overlaps = {f"{a}->{b}": str(Fraction(len(honest.addresses(a) & honest.addresses(b)), V_MAIN))
+                for a, b in zip(want, want[1:])}
+    t_chain = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for h in want:  # signed before the timed syncs: only the heights the bisection asks for
+        honest.commit(h)
+    forked.commit(LIGHT_HEIGHTS)
+    t_sign = time.perf_counter() - t0
+    log(f"[27] chain: {len(keys)} keys, {LIGHT_HEIGHTS} heights of {V_MAIN} validators of power 10, the set "
+        f"moving by {LIGHT_SHIFT} keys every {LIGHT_EVERY} heights ({t_chain:.1f} s, set hashes on the host); "
+        f"expected trace from the sets' overlaps {want} (overlaps {overlaps}, trust 1/3); heights {want} and "
+        f"the fork's {LIGHT_HEIGHTS} signed in {t_sign:.1f} s")
+    now = LCo.GENESIS_NS + (LIGHT_HEIGHTS + 10) * LCo.BLOCK_NS
+    # one entry for each set of the trace: the default two would evict the root's set on the
+    # third, and the warm run would build again what the cold one built
+    cache = cv.ValsetCombCache(max_entries=len(want))
+    kw = dict(device=dev, comb_cache=cache)
+
+    hash_log = []  # (validators, K7 launches, K8 launches) of every set hash computed afresh
+    real_hash = T.ValidatorSet.hash
+
+    def logged_hash(self, device="cuda"):
+        if self._hash is not None:
+            return real_hash(self, device)
+        before = read_counts()
+        out = real_hash(self, device)
+        after = read_counts()
+        hash_log.append((len(self.validators), after["sha256_blocks"] - before["sha256_blocks"],
+                         after["merkle_tree"] - before["merkle_tree"]))
+        return out
+
+    def instrument(client, hops):
+        real = client._verify
+
+        def hop(trusted, lb, now_ns):
+            before = read_counts()
+            t_hop = time.perf_counter()
+            try:
+                real(trusted, lb, now_ns)
+                ok = True
+            except light.ErrNewValSetCantBeTrusted:
+                ok = False
+                raise
+            finally:
+                after = read_counts()
+                hops.append({"from": trusted.height, "to": lb.height, "ok": ok,
+                             "ms": (time.perf_counter() - t_hop) * 1e3,
+                             "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]}})
+
+        client._verify = hop
+
+    def signature_route(launches):
+        if launches.get("sha512_blocks", 0) < 1:
+            return None
+        if launches.get("parse_verify_payload", 0) >= 1 and launches.get("verify_cached", 0) >= 1:
+            return "K1->K2->K4" if launches.get("verify_batch", 0) == 0 else "K1->K2->K4 + K2->K5"
+        return "K2->K5" if launches.get("verify_batch", 0) >= 1 else None
+
+    def sync(tag):
+        """(a): one SKIPPING sync over a fresh store; logs it, then checks it."""
+        hops, hash_log[:] = [], []
+        primary, witness = LCo.Provider(honest), LCo.Provider(honest)
+        store = light.LightStore(MemDB())
+        zero_counts()
+        t_sync = time.perf_counter()
+        client = light.Client(chain_id, light.TrustOptions(TRUSTING_PERIOD_NS, 1, honest.headers[1].hash()),
+                              primary, [witness], store, now_fn=lambda: now, **kw)
+        instrument(client, hops)
+        lb = client.verify_light_block_at_height(LIGHT_HEIGHTS)
+        wall = (time.perf_counter() - t_sync) * 1e3
+        launches = read_counts(f"light_sync_{tag}")
+        hashes = hash_log[:]  # the sync's own; the checks below hash the decoded sets on the host
+        stored = [int.from_bytes(k[3:], "big") for k, _ in store.db.iterator(b"lb:", b"lb:\xff")]
+        decode_ms, decoded = [], []
+        for h in stored:
+            t_dec = time.perf_counter()
+            decoded.append(store.light_block(h))
+            decode_ms.append((time.perf_counter() - t_dec) * 1e3)
+        for hp in hops:
+            hp["route"] = signature_route(hp["launches"])
+        log(f"[27a] ({smi}) {tag} SKIPPING sync 1 -> {LIGHT_HEIGHTS}: {wall:.1f} ms; primary asked "
+            f"{primary.asked}; hops "
+            + "; ".join(f"{h['from']}->{h['to']} {'ok' if h['ok'] else 'cannot trust'} {h['ms']:.1f} ms "
+                        f"{h['route'] or '-'} {h['launches']}" for h in hops)
+            + f"; set hashes (validators, K7, K8) {hashes}; store decode of a {V_MAIN}-validator block "
+            f"{', '.join(f'{x:.1f}' for x in decode_ms)} ms; launches {launches}")
+        require(lb.hash == honest.headers[LIGHT_HEIGHTS].hash(), f"(a) {tag}: the synced block is not the chain's")
+        require(stored == want, f"(a) {tag}: stored heights {stored} != the expected trace {want}")
+        require([h["to"] for h in hops if h["ok"]] == want[1:], f"(a) {tag}: verified hops {hops} != {want}")
+        require(witness.asked == [LIGHT_HEIGHTS], f"(a) {tag}: the witness was asked {witness.asked}")
+        for h, back in zip(stored, decoded):
+            require(back.hash == honest.headers[h].hash() and back.validator_set.hash(device=False)
+                    == honest.set_hash(h), f"(a) {tag}: stored block {h} decoded to another block")
+        for hp in hops:
+            if hp["ok"]:
+                require(hp["route"] is not None,
+                        f"(a) {tag}: hop {hp['from']}->{hp['to']} launched no ed25519 chain: {hp['launches']}")
+        big = [x for x in hashes if x[0] >= 512]
+        require(len(big) == len(want) and all(x[1:] == (1, 1) for x in big),
+                f"(a) {tag}: the new sets' hashes did not each launch K7 and K8 once: {hashes}")
+        return {"wall_ms": wall, "hops": hops, "asked": primary.asked, "decode_ms": decode_ms,
+                "launches": launches, "set_hashes": hashes}
+
+    T.ValidatorSet.hash = logged_hash
+    try:
+        # ------------------------------------------------ (a) skipping sync
+        cold = sync("cold")
+        cache.join_async()  # the sets' background builds land
+        warm = sync("warm")
+        require(warm["launches"]["verify_batch"] == 0 and warm["launches"]["build_a_tables"] == 0
+                and warm["launches"]["verify_cached"] >= 2 * len(want) - 1,
+                f"(a) warm: the tables were warm, yet {warm['launches']}")
+        rec["light_sync_ms"] = {"cold": cold["wall_ms"], "warm": warm["wall_ms"]}
+        rec["light_hops"] = {"cold": cold["hops"], "warm": warm["hops"]}
+        rec["light_store_decode_ms"] = cold["decode_ms"] + warm["decode_ms"]
+        rec["light_trace"] = want
+
+        # ------------------------------------------------ (b) a lunatic primary
+        hops_b = []
+        primary_f, witness_h = LCo.Provider(forked), LCo.Provider(honest)
+        zero_counts()
+        t0 = time.perf_counter()
+        client_b = light.Client(chain_id, light.TrustOptions(TRUSTING_PERIOD_NS, 1, honest.headers[1].hash()),
+                                primary_f, [witness_h], light.LightStore(MemDB()), now_fn=lambda: now, **kw)
+        instrument(client_b, hops_b)
+        try:
+            client_b.verify_light_block_at_height(LIGHT_HEIGHTS)
+            raise AssertionError("(b) the lunatic primary's block verified")
+        except light.ErrLightClientAttackDetected as e:
+            evidence = e.evidence
+        t_detect = (time.perf_counter() - t0) * 1e3
+        c_detect = read_counts("light_lunatic")
+        require(len(evidence) == 2 and len(witness_h.reported_evidence) == 1
+                and len(primary_f.reported_evidence) == 1,
+                f"(b) evidence {len(evidence)}, to the witness {len(witness_h.reported_evidence)}, to the "
+                f"primary {len(primary_f.reported_evidence)}")
+        ev = witness_h.reported_evidence[0]
+        w_common, w_byz, w_total = LCo.attack_fields(honest, want[-2], LIGHT_HEIGHTS)
+        require(ev.common_height == w_common, f"(b) common height {ev.common_height} != {w_common}")
+        require([(v.address, v.voting_power) for v in ev.byzantine_validators]
+                == [(v.address, v.voting_power) for v in w_byz],
+                f"(b) {len(ev.byzantine_validators)} byzantine validators != the host's {len(w_byz)}")
+        require(ev.total_voting_power == w_total, f"(b) total power {ev.total_voting_power} != {w_total}")
+        require(ev.conflicting_block.hash == forked.headers[LIGHT_HEIGHTS].hash(),
+                "(b) the evidence's conflicting block is not the forged one")
+        mirror = primary_f.reported_evidence[0]
+        require(mirror.conflicting_block.hash == honest.headers[LIGHT_HEIGHTS].hash(),
+                "(b) the mirror evidence's conflicting block is not the honest one")
+        common_sh = honest.light_block(w_common).signed_header
+        trusted_sh = honest.light_block(LIGHT_HEIGHTS).signed_header
+        common_vals = honest.vals(w_common)
+        svc = global_service(dev)
+        before = svc.stats()["dispatched_batches"]["consensus"]
+        zero_counts()
+        t0 = time.perf_counter()
+        EV.verify_light_client_attack(ev, common_sh, trusted_sh, common_vals, chain_id, **kw)
+        t_check = (time.perf_counter() - t0) * 1e3
+        c_check = read_counts("evidence_check")
+        n_consensus = svc.stats()["dispatched_batches"]["consensus"] - before
+        require(n_consensus == 2 and c_check["sha512_blocks"] >= 2
+                and c_check["verify_cached"] + c_check["verify_batch"] >= 2,
+                f"(b) the evidence check: {n_consensus} CONSENSUS batches, launches {c_check}")
+        refused = {}
+        for what, mutate in (("total power + 1", lambda e: setattr(e, "total_voting_power", e.total_voting_power + 1)),
+                             ("a byzantine validator dropped",
+                              lambda e: setattr(e, "byzantine_validators", e.byzantine_validators[1:]))):
+            bad = copy.copy(ev)
+            mutate(bad)
+            try:
+                EV.verify_light_client_attack(bad, common_sh, trusted_sh, common_vals, chain_id, **kw)
+                raise AssertionError(f"(b) the evidence with {what} passed")
+            except EV.EvidenceVerificationError as e:
+                refused[what] = str(e)
+        # one duplicate vote: two host signatures by a validator of the set at the fork's height
+        dv_val = honest.validators(LIGHT_HEIGHTS)[0]
+        dv_key = next(k for k in keys if k.pub_key().address() == dv_val.address)
+        votes = []
+        for tag in (b"a", b"b"):
+            vote = T.Vote(type=PRECOMMIT_TYPE, height=LIGHT_HEIGHTS, round=0,
+                          block_id=T.BlockID(hash=hashlib.sha256(tag).digest(),
+                                             part_set_header=T.PartSetHeader(1, hashlib.sha256(tag + b"p").digest())),
+                          timestamp=honest.time(LIGHT_HEIGHTS), validator_address=dv_val.address, validator_index=0)
+            vote.signature = dv_key.sign(vote.sign_bytes(chain_id))
+            votes.append(vote)
+        dvals = honest.vals(LIGHT_HEIGHTS)
+        dve = DuplicateVoteEvidence.from_votes(votes[0], votes[1], honest.time(LIGHT_HEIGHTS), dvals)
+        EV.verify_duplicate_vote(dve, chain_id, dvals)
+        bad_dve = copy.copy(dve)
+        bad_dve.validator_power += 1
+        try:
+            EV.verify_duplicate_vote(bad_dve, chain_id, dvals)
+            raise AssertionError("(b) a duplicate vote with the wrong power passed")
+        except EV.EvidenceVerificationError:
+            pass
+        log(f"[27b] ({smi}) lunatic primary forked at {LIGHT_FORK}: detected in {t_detect:.1f} ms (hops "
+            + "; ".join(f"{h['from']}->{h['to']} {'ok' if h['ok'] else 'cannot trust'} {h['ms']:.1f} ms "
+                        f"{signature_route(h['launches']) or '-'}" for h in hops_b)
+            + f"; launches {c_detect}); evidence against the primary: common height {ev.common_height}, "
+            f"{len(ev.byzantine_validators)} byzantine validators (== the host's, by (-power, address)), total "
+            f"power {ev.total_voting_power}, hash {ev.hash().hex()[:16]}; mirror evidence to the primary at "
+            f"common height {mirror.common_height}; verify_light_client_attack on the honest {w_common} and "
+            f"{LIGHT_HEIGHTS}: passed in {t_check:.2f} ms ({n_consensus} CONSENSUS batches: a trusting check and "
+            f"a full check of {V_MAIN} rows, every signature counted; launches {c_check}); refused: "
+            + json.dumps(refused) + "; one duplicate vote verified, its power + 1 refused")
+        rec.update(light_detect_ms=t_detect, evidence_check_ms=t_check, evidence_check_launches=c_check,
+                   evidence_byzantine=len(ev.byzantine_validators), evidence_common_height=ev.common_height)
+
+        # ------------------------------------------------ (c) BASELINE.json config 2
+        keys150 = LCo.make_keys(SEED + 28, V_LIGHT)
+        chain150 = LCo.Chain(chain_id + "-150", keys150, LIGHT_SEQ_HEIGHTS, V_LIGHT, 0, 1)
+        for h in range(1, LIGHT_SEQ_HEIGHTS + 1):
+            chain150.commit(h)
+        hops_c, lanes = [], []
+        primary_c, witness_c = LCo.Provider(chain150), LCo.Provider(chain150)
+        real_k5 = E.verify_batch
+
+        def k5_lanes(a, *rest):
+            lanes.append(int(a.shape[0]))
+            return real_k5(a, *rest)
+
+        E.verify_batch = k5_lanes
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            client_c = light.Client(chain_id + "-150",
+                                    light.TrustOptions(TRUSTING_PERIOD_NS, 1, chain150.headers[1].hash()),
+                                    primary_c, [witness_c], light.LightStore(MemDB()), mode=light.SEQUENTIAL,
+                                    now_fn=lambda: now, **kw)
+            instrument(client_c, hops_c)
+            client_c.verify_light_block_at_height(LIGHT_SEQ_HEIGHTS)
+            t_seq = (time.perf_counter() - t0) * 1e3
+            c_seq = read_counts("light_config2")
+        finally:
+            E.verify_batch = real_k5
+        require(len(hops_c) == LIGHT_SEQ_HEIGHTS - 1 and all(
+            h["ok"] and h["launches"].get("verify_batch") == 1 and h["launches"].get("sha512_blocks") == 1
+            and not h["launches"].get("verify_cached") for h in hops_c),
+            f"(c) a hop did not launch K2 -> K5 once: {[h for h in hops_c if h['launches'].get('verify_batch') != 1]}")
+        hop_ms = [h["ms"] for h in hops_c]
+        log(f"[27c] ({smi}) BASELINE.json config 2: SEQUENTIAL sync over {LIGHT_SEQ_HEIGHTS} heights of "
+            f"{V_LIGHT} validators in {t_seq:.1f} ms; every hop K2 -> K5 (lanes a launch {sorted(set(lanes))}: the "
+            f"commit check stops past 2/3, {_next_bucket(V_LIGHT)} lanes would hold all {V_LIGHT}); hop p50 "
+            f"{np.median(hop_ms):.2f} ms (min {min(hop_ms):.2f}, max {max(hop_ms):.2f}); launches {c_seq}")
+        rec.update(light_config2_sync_ms=t_seq, light_config2_hop_p50_ms=float(np.median(hop_ms)),
+                   light_config2_lanes=sorted(set(lanes)))
+    finally:
+        T.ValidatorSet.hash = real_hash
+    rec["light_phase_s"] = time.perf_counter() - t_phase
+    log(f"[27] ({smi}) light-client phase {rec['light_phase_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3814,6 +4134,10 @@ def main() -> int:
     })
     no_failover("25")
 
+    # ---------------------------------------------------- 27. the light client
+    light_record = light_phases(dev, log, require, zero_counts, read_counts, {"smi": smi})
+    no_failover("27")
+
     # ---------------------------------------------------- 26. the failover
     failover_record = failover_phases(dev, log, require, zero_counts, read_counts, {
         "smi": smi, "chain_id": CHAIN_ID, "vals": vals, "bid": bid, "height": height, "good": good,
@@ -4021,7 +4345,10 @@ def main() -> int:
         f"{failover_record['failover_watchdog_p50_ms']['on']:.2f} ms with the watchdog on, "
         f"{failover_record['failover_watchdog_p50_ms']['off']:.2f} off, trip {failover_record['failover_trip_s']:.2f} s, "
         f"restore {failover_record['failover_restore_s']:.2f} s after the clear; failover phase "
-        f"{failover_record['failover_phase_s']:.1f} s")
+        f"{failover_record['failover_phase_s']:.1f} s; light client at {V_MAIN}: sync 1 -> {LIGHT_HEIGHTS} "
+        f"{light_record['light_sync_ms']['cold']:.1f} ms cold, {light_record['light_sync_ms']['warm']:.1f} warm, "
+        f"evidence check {light_record['evidence_check_ms']:.2f} ms, config 2 hop p50 "
+        f"{light_record['light_config2_hop_p50_ms']:.2f} ms; light phase {light_record['light_phase_s']:.1f} s")
     log(f"[21] {smi}: beside run 9m (ms) — light-client p50 {p50_l:.2f} ({RUN_9M['light-client p50']}), "
         f"uncached p50 {p50_u:.2f} ({RUN_9M['uncached p50']}), set change's first call {change_first_ms:.1f} "
         f"({RUN_9M['set change first call']}), churn build {churn_ms:.1f} beside it "
@@ -4042,7 +4369,7 @@ def main() -> int:
                     "light_10k_p50_ms": p50_light, "proofs_16k_p50_ms": p50_proofs,
                     "multiproof_16k_p50_ms": p50_multi, "multiproof_dedup": dedup,
                     "host_proofs_16k_ms": host_proofs_ms, **secp_record, **bls_record,
-                    **shard_record, **svc_record, **replay_record, **failover_record}))
+                    **shard_record, **svc_record, **replay_record, **light_record, **failover_record}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

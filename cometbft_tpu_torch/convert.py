@@ -3,7 +3,9 @@
 Chain state (validator sets, signed headers) comes across from plain
 values — bytes, ints and tuples read off the JAX objects by the caller —
 so that both packages are fed the same chain without the port importing
-the JAX package.  Merkle leaves need nothing: both take lists of bytes.
+the JAX package.  Light blocks and evidence come across as the proto
+bytes the JAX package's ``to_proto().encode()`` writes, decoded by the
+port's own codec.  Merkle leaves need nothing: both take lists of bytes.
 
 The secp lane (slice 4): the JAX package keeps 256-bit values as (B, 22)
 int32 12-bit limbs and its G window table as (16, 66) Jacobian
@@ -36,8 +38,10 @@ from .ops import bls381 as bls
 from .ops import comb
 from .ops import secp256k1 as secp
 from .types import block as B
-from .types.light_block import SignedHeader
+from .types import evidence as Ev
+from .types.light_block import LightBlock, SignedHeader
 from .types.validators import Validator, ValidatorSet
+from .wire import types as pb
 from .wire.canonical import Timestamp
 from .wire.types import Consensus
 
@@ -255,3 +259,15 @@ def signed_header(header_fields: dict, commit_fields) -> SignedHeader:
     """header() and commit() of the given values -> SignedHeader;
     ``commit_fields`` is (height, round, bid, sigs)."""
     return SignedHeader(header(header_fields), commit(*commit_fields))
+
+
+def light_block(raw: bytes) -> LightBlock:
+    """A LightBlockProto's bytes (the JAX LightBlock's
+    ``to_proto().encode()``) -> the port's LightBlock."""
+    return LightBlock.from_proto(pb.LightBlockProto.decode(raw))
+
+
+def evidence(raw: bytes) -> Ev.Evidence:
+    """An EvidenceProto's bytes (the JAX ``evidence_to_proto(ev).encode()``,
+    the form a block's evidence list carries) -> the port's evidence."""
+    return Ev.evidence_from_proto(pb.EvidenceProto.decode(raw))

@@ -55,6 +55,7 @@ import time
 from array import array
 from collections import OrderedDict
 from concurrent.futures import Future
+from operator import itemgetter
 
 import numpy as np
 import torch
@@ -667,6 +668,9 @@ def _fill_payload(
     return buf
 
 
+_PUB, _MSG, _SIG = itemgetter(0), itemgetter(1), itemgetter(2)  # of a (pubkey, msg, sig) item
+
+
 def _pack(items) -> tuple[bytes, bytes, np.ndarray]:
     """(sigs, msgs, lens) of (pubkey, msg, sig) items, as add() packs
     them."""
@@ -718,9 +722,11 @@ class CombBatchVerifier:
     (models/verifier.Ed25519BatchVerifier), which then verifies every
     item in add() order (cometbft_tpu/models/comb_verifier.py:557-582)
     with its own submit.  add() only appends, and packs the signature and
-    the message into the batch's byte arrays as it goes: the payload
-    fill on the staging thread after submit() is then a few bulk copies
-    (``_fill_payload``), with no loop over the items in Python."""
+    the message into the batch's byte arrays as it goes (add_many() a
+    whole request at once, as the verify service's scheduler calls it):
+    the payload fill on the staging thread after submit() is then a few
+    bulk copies (``_fill_payload``), with no loop over the items in
+    Python."""
 
     def __init__(self, entry: _CacheEntry):
         self._entry = entry
@@ -764,9 +770,7 @@ class CombBatchVerifier:
         if row is None or row in self._row_set:
             # the payload holds one row per validator of the set: replay
             # everything added so far into the uncached verifier
-            self._fallback = Ed25519BatchVerifier(device=self._entry.device)
-            for item in self._items:
-                self._fallback.add(*item)
+            self._demote()
             return
         self._row_set.add(row)
         self._rows.append(row)
@@ -777,6 +781,56 @@ class CombBatchVerifier:
         self._sigs += sig
         self._msgs += msg
         self._lens.append(len(msg))
+
+    def add_many(self, items) -> None:
+        """add() of every ``(pub_key, msg, sig)`` tuple of ``items``, in
+        their order, as one bulk pass: the lengths checked first (a
+        malformed item adds nothing), the rows looked up in one pass over
+        the set's index, a foreign key or a repeated row (against the
+        batch's earlier rows too) found before anything is packed, then
+        one join each for the signatures and the messages.  A demotion
+        replays every item in add() order, as add() does.  A key found in
+        the index is a 32-byte key of the set, so only a request with a
+        key outside it pays for the keys' length check."""
+        items = items if isinstance(items, list) else list(items)
+        n = len(items)
+        if n == 0:
+            return
+        if set(map(len, map(_SIG, items))) != {64}:
+            raise ValueError("malformed ed25519 pubkey or signature")
+        lens = array("q", list(map(len, map(_MSG, items))))
+        if max(lens) >= 1 << 24:
+            raise ValueError("message too large for batch verification")
+        rows = None if self._fallback is not None else list(map(self._entry.index.get, map(_PUB, items)))
+        if (rows is None or None in rows) and set(map(len, map(_PUB, items))) != {32}:
+            raise ValueError("malformed ed25519 pubkey or signature")
+        self._items.extend(items)
+        if self._fallback is not None:
+            for item in items:
+                self._fallback.add(*item)
+            return
+        if None in rows:
+            self._demote()
+            return
+        seen = len(self._row_set)
+        self._row_set.update(rows)
+        if len(self._row_set) != seen + n:  # a row twice, in this request or across two
+            self._demote()
+            return
+        self._rows.extend(rows)
+        if self._handed_over:
+            self._sigs, self._msgs, self._lens = bytearray(self._sigs), bytearray(self._msgs), array("q", self._lens)
+            self._handed_over = False
+        self._sigs += b"".join(map(_SIG, items))
+        self._msgs += b"".join(map(_MSG, items))
+        self._lens += lens
+
+    def _demote(self) -> None:
+        """Hand the batch to the uncached verifier: every item added so
+        far, in add() order."""
+        self._fallback = Ed25519BatchVerifier(device=self._entry.device)
+        for item in self._items:
+            self._fallback.add(*item)
 
     def submit(self):
         """Hand the batch to the staging thread and return at once: the

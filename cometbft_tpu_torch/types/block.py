@@ -1,7 +1,7 @@
 """BlockID, PartSetHeader, CommitSig, Commit and Header (reference:
 types/block.go): the part of cometbft_tpu/types/block.py that commit and
-light-client verification read, with the header and commit hashes.
-Proto decoding stays in the JAX package for now.
+light-client verification read, with the header and commit hashes and
+the proto round trip (to_proto / from_proto) of each.
 
 Hashing rules follow the reference: Header.Hash is the Merkle root over
 the 14 proto-encoded fields, primitives wrapped in gogoproto wrappers
@@ -51,6 +51,10 @@ class PartSetHeader:
     def to_proto(self) -> pb.PartSetHeader:
         return pb.PartSetHeader(total=self.total, hash=self.hash)
 
+    @classmethod
+    def from_proto(cls, m: pb.PartSetHeader) -> "PartSetHeader":
+        return cls(total=m.total, hash=m.hash)
+
     def __eq__(self, other):
         return (
             isinstance(other, PartSetHeader)
@@ -73,6 +77,13 @@ class BlockID:
         """True when this is the zero/nil BlockID (a nil vote)."""
         return len(self.hash) == 0 and self.part_set_header.is_zero()
 
+    def is_complete(self) -> bool:
+        return (
+            len(self.hash) == HASH_SIZE
+            and self.part_set_header.total > 0
+            and len(self.part_set_header.hash) == HASH_SIZE
+        )
+
     def validate_basic(self) -> None:
         _validate_hash(self.hash)
         self.part_set_header.validate_basic()
@@ -82,6 +93,11 @@ class BlockID:
 
     def to_proto(self) -> pb.BlockID:
         return pb.BlockID(hash=self.hash, part_set_header=self.part_set_header.to_proto())
+
+    @classmethod
+    def from_proto(cls, m: pb.BlockID) -> "BlockID":
+        psh = m.part_set_header or pb.PartSetHeader()
+        return cls(hash=m.hash, part_set_header=PartSetHeader.from_proto(psh))
 
     def to_canonical(self) -> CanonicalBlockID | None:
         """nil BlockIDs canonicalize to an omitted field (canonical.go)."""
@@ -161,6 +177,15 @@ class CommitSig:
             signature=self.signature,
         )
 
+    @classmethod
+    def from_proto(cls, m: pb.CommitSig) -> "CommitSig":
+        return cls(
+            block_id_flag=m.block_id_flag,
+            validator_address=m.validator_address,
+            timestamp=m.timestamp or ZERO_TIME,
+            signature=m.signature,
+        )
+
     def __eq__(self, other):
         return (
             isinstance(other, CommitSig)
@@ -229,6 +254,32 @@ class Commit:
             return maker(cs.timestamp)
 
         return fn
+
+    def to_proto(self) -> pb.Commit:
+        return pb.Commit(
+            height=self.height,
+            round=self.round,
+            block_id=self.block_id.to_proto(),
+            signatures=[cs.to_proto() for cs in self.signatures],
+        )
+
+    @classmethod
+    def from_proto(cls, m: pb.Commit) -> "Commit":
+        return cls(
+            height=m.height,
+            round=m.round,
+            block_id=BlockID.from_proto(m.block_id or pb.BlockID()),
+            signatures=[CommitSig.from_proto(s) for s in m.signatures],
+        )
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, Commit)
+            and self.height == other.height
+            and self.round == other.round
+            and self.block_id == other.block_id
+            and self.signatures == other.signatures
+        )
 
 
 def _validate_hash(h: bytes) -> None:
@@ -331,3 +382,45 @@ class Header:
             _validate_hash(getattr(self, name))
         if len(self.proposer_address) > 0 and len(self.proposer_address) != 20:
             raise ValueError("invalid proposer address size")
+
+    def to_proto(self) -> pb.Header:
+        return pb.Header(
+            version=self.version,
+            chain_id=self.chain_id,
+            height=self.height,
+            time=self.time,
+            last_block_id=self.last_block_id.to_proto(),
+            last_commit_hash=self.last_commit_hash,
+            data_hash=self.data_hash,
+            validators_hash=self.validators_hash,
+            next_validators_hash=self.next_validators_hash,
+            consensus_hash=self.consensus_hash,
+            app_hash=self.app_hash,
+            last_results_hash=self.last_results_hash,
+            evidence_hash=self.evidence_hash,
+            proposer_address=self.proposer_address,
+        )
+
+    @classmethod
+    def from_proto(cls, m: pb.Header) -> "Header":
+        return cls(
+            version=m.version or pb.Consensus(),
+            chain_id=m.chain_id,
+            height=m.height,
+            time=m.time or ZERO_TIME,
+            last_block_id=BlockID.from_proto(m.last_block_id or pb.BlockID()),
+            last_commit_hash=m.last_commit_hash,
+            data_hash=m.data_hash,
+            validators_hash=m.validators_hash,
+            next_validators_hash=m.next_validators_hash,
+            consensus_hash=m.consensus_hash,
+            app_hash=m.app_hash,
+            last_results_hash=m.last_results_hash,
+            evidence_hash=m.evidence_hash,
+            proposer_address=m.proposer_address,
+        )
+
+    def __eq__(self, other):
+        return isinstance(other, Header) and all(
+            getattr(self, f) == getattr(other, f) for f in self.FIELDS
+        )

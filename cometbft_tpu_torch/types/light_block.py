@@ -1,8 +1,10 @@
 """SignedHeader and LightBlock (reference: types/light_block.go; a copy
-of cometbft_tpu/types/light_block.py without the proto round trip)."""
+of cometbft_tpu/types/light_block.py, whose validator-set hash takes
+the card for large sets)."""
 
 from __future__ import annotations
 
+from ..wire import types as pb
 from .block import Commit, Header
 from .validators import ValidatorSet
 
@@ -30,6 +32,18 @@ class SignedHeader:
         if self.commit.block_id.hash != self.header.hash():
             raise ValueError("commit signs block failing to match header")
 
+    def to_proto(self) -> pb.SignedHeader:
+        return pb.SignedHeader(
+            header=self.header.to_proto(), commit=self.commit.to_proto()
+        )
+
+    @classmethod
+    def from_proto(cls, m: pb.SignedHeader) -> "SignedHeader":
+        return cls(
+            header=Header.from_proto(m.header),
+            commit=Commit.from_proto(m.commit),
+        )
+
 
 class LightBlock:
     __slots__ = ("signed_header", "validator_set")
@@ -55,3 +69,16 @@ class LightBlock:
         self.validator_set.validate_basic()
         if self.signed_header.header.validators_hash != self.validator_set.hash(device):
             raise ValueError("validator set does not match header validators hash")
+
+    def to_proto(self) -> pb.LightBlockProto:
+        return pb.LightBlockProto(
+            signed_header=self.signed_header.to_proto(),
+            validator_set=self.validator_set.to_proto(),
+        )
+
+    @classmethod
+    def from_proto(cls, m: pb.LightBlockProto) -> "LightBlock":
+        return cls(
+            signed_header=SignedHeader.from_proto(m.signed_header),
+            validator_set=ValidatorSet.from_proto(m.validator_set),
+        )

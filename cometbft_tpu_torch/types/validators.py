@@ -1,25 +1,27 @@
 """Validator and ValidatorSet (reference: types/validator.go,
-types/validator_set.go): sorting, total power, proposer, the pubkey
-list that keys the comb-table cache, and the set's RFC-6962 hash over
-SimpleValidator encodings.  The part of cometbft_tpu/types/validators.py
-that commit and light-client verification read; the set's proto form
-and priority rotation are not ported yet.
+types/validator_set.go), as cometbft_tpu/types/validators.py has them:
+sorting, total power capped at MaxInt64/8, proposer selection by
+priority increment (validator_set.go:131 IncrementProposerPriority),
+change sets, the proto round trip, the pubkey list that keys the
+comb-table cache, and the set's RFC-6962 hash over SimpleValidator
+encodings (validator_set.go:386) on the card for large sets.
 """
 
 from __future__ import annotations
 
+from ..crypto import encoding as keyenc
 from ..crypto import merkle
-from ..wire.types import PublicKey, SimpleValidator
+from ..wire import types as pb
 
 MAX_INT64 = (1 << 63) - 1
+MIN_INT64 = -(1 << 63)
 MAX_TOTAL_VOTING_POWER = MAX_INT64 // 8
-# key type -> its field of the PublicKey oneof (wire/types.PublicKey)
-_PROTO_ARM = {
-    "ed25519": "ed25519",
-    "secp256k1": "secp256k1",
-    "bls12_381": "bls12381",
-    "secp256k1eth": "secp256k1eth",
-}
+PRIORITY_WINDOW_SIZE_FACTOR = 2
+
+
+def _clip(v: int) -> int:
+    """Saturating int64 (safeAddClip/safeSubClip in the reference)."""
+    return max(MIN_INT64, min(MAX_INT64, v))
 
 
 class Validator:
@@ -32,17 +34,19 @@ class Validator:
         self.proposer_priority = int(proposer_priority)
 
     def copy(self) -> "Validator":
-        return Validator(self.pub_key, self.voting_power, self.proposer_priority)
+        """The same validator; the address is carried over, not hashed
+        again from the key."""
+        v = Validator.__new__(Validator)
+        v.pub_key, v.address = self.pub_key, self.address
+        v.voting_power, v.proposer_priority = self.voting_power, self.proposer_priority
+        return v
 
     def bytes(self) -> bytes:
         """SimpleValidator proto encoding — the hashing form
         (types/validator.go Validator.Bytes): the key in its PublicKey
         arm (crypto/encoding.go PubKeyToProto)."""
-        arm = _PROTO_ARM.get(self.pub_key.type)
-        if arm is None:
-            raise ValueError(f"key type {self.pub_key.type!r} not supported")
-        sv = SimpleValidator(
-            pub_key=PublicKey(**{arm: self.pub_key.bytes()}),
+        sv = pb.SimpleValidator(
+            pub_key=keyenc.pubkey_to_proto(self.pub_key),
             voting_power=self.voting_power,
         )
         return sv.encode()
@@ -70,6 +74,25 @@ class Validator:
             return other
         raise ValueError("cannot compare identical validators")
 
+    def to_proto(self) -> pb.Validator:
+        return pb.Validator(
+            address=self.address,
+            pub_key_bytes=self.pub_key.bytes(),
+            pub_key_type=self.pub_key.type,
+            voting_power=self.voting_power,
+            proposer_priority=self.proposer_priority,
+        )
+
+    @classmethod
+    def from_proto(cls, msg: pb.Validator) -> "Validator":
+        if msg.pub_key_bytes:
+            key = keyenc.pubkey_from_type_and_bytes(msg.pub_key_type, msg.pub_key_bytes)
+        elif msg.pub_key is not None:
+            key = keyenc.pubkey_from_proto(msg.pub_key)
+        else:
+            raise ValueError("validator proto missing public key")
+        return cls(key, msg.voting_power, msg.proposer_priority)
+
     def __eq__(self, other):
         return (
             isinstance(other, Validator)
@@ -92,7 +115,11 @@ def _val_sort_key(v: Validator):
 
 
 class ValidatorSet:
-    """Sorted validator set (validator_set.go:43)."""
+    """Sorted validator set with proposer rotation (validator_set.go:43).
+
+    Memos of membership (the hash, the address index, the pubkey list)
+    live until update_with_change_set changes the members; copy() keeps
+    them, and the priority rotation leaves them be."""
 
     def __init__(self, validators: list[Validator]):
         self.validators: list[Validator] = sorted(
@@ -100,7 +127,7 @@ class ValidatorSet:
         )
         self._total_voting_power: int | None = None
         self._pub_keys_bytes: list[bytes] | None = None
-        # memos of hash() and get_by_address(): the set is never changed in place
+        # memos of hash() and get_by_address(), dropped by update_with_change_set
         self._hash: bytes | None = None
         self._by_address: dict[bytes, int] | None = None
         self.proposer: Validator | None = None
@@ -116,6 +143,24 @@ class ValidatorSet:
 
     def __len__(self):
         return len(self.validators)
+
+    def copy(self) -> "ValidatorSet":
+        new = ValidatorSet.__new__(ValidatorSet)
+        new.validators = [v.copy() for v in self.validators]
+        new._total_voting_power = self._total_voting_power
+        # the same membership: the memos hold
+        new._pub_keys_bytes = self._pub_keys_bytes
+        new._hash = self._hash
+        new._by_address = self._by_address
+        new.proposer = None
+        if self.proposer is not None:
+            for v in new.validators:
+                if v.address == self.proposer.address:
+                    new.proposer = v
+                    break
+            else:
+                new.proposer = self.proposer.copy()
+        return new
 
     def _update_total_voting_power(self) -> None:
         total = 0
@@ -143,6 +188,20 @@ class ValidatorSet:
             }
         i = self._by_address.get(address, -1)
         return (i, self.validators[i]) if i >= 0 else (-1, None)
+
+    def validator_blocks_the_chain(self, address: bytes) -> bool:
+        """True if this validator alone holds > 1/3 power, i.e. the chain
+        cannot progress without it (validator_set.go:374)."""
+        _, val = self.get_by_address(address)
+        if val is None:
+            return False
+        return val.voting_power > (self.total_voting_power() - 1) // 3
+
+    def get_by_index(self, index: int) -> tuple[bytes, Validator | None]:
+        if index < 0 or index >= len(self.validators):
+            return b"", None
+        v = self.validators[index]
+        return v.address, v
 
     def has_address(self, address: bytes) -> bool:
         return self.get_by_address(address)[1] is not None
@@ -197,6 +256,150 @@ class ValidatorSet:
             route = device if len(items) >= merkle.DEVICE_THRESHOLD else False
             self._hash = merkle.hash_from_byte_slices(items, device=route)
         return self._hash
+
+    # ------------------------------------------- proposer priority cycle
+
+    def increment_proposer_priority(self, times: int) -> None:
+        """Advance the proposer rotation `times` rounds
+        (validator_set.go:131)."""
+        if self.is_nil_or_empty():
+            raise ValueError("empty validator set")
+        if times <= 0:
+            raise ValueError("cannot call increment_proposer_priority with non-positive times")
+        diff_max = PRIORITY_WINDOW_SIZE_FACTOR * self.total_voting_power()
+        self.rescale_priorities(diff_max)
+        self._shift_by_avg_proposer_priority()
+        proposer = None
+        for _ in range(times):
+            proposer = self._increment_proposer_priority()
+        self.proposer = proposer
+
+    def _increment_proposer_priority(self) -> Validator:
+        for v in self.validators:
+            v.proposer_priority = _clip(v.proposer_priority + v.voting_power)
+        mostest = self._find_proposer()
+        mostest.proposer_priority = _clip(
+            mostest.proposer_priority - self.total_voting_power()
+        )
+        return mostest
+
+    def rescale_priorities(self, diff_max: int) -> None:
+        """Keep max-min priority distance under diff_max (validator_set.go:158)."""
+        if self.is_nil_or_empty():
+            raise ValueError("empty validator set")
+        if diff_max <= 0:
+            return
+        diff = self._max_min_priority_diff()
+        ratio = (diff + diff_max - 1) // diff_max
+        if diff > diff_max:
+            for v in self.validators:
+                # Go integer division truncates toward zero.
+                q = abs(v.proposer_priority) // ratio
+                v.proposer_priority = q if v.proposer_priority >= 0 else -q
+
+    def _max_min_priority_diff(self) -> int:
+        prios = [v.proposer_priority for v in self.validators]
+        return max(prios) - min(prios)
+
+    def _compute_avg_proposer_priority(self) -> int:
+        n = len(self.validators)
+        total = sum(v.proposer_priority for v in self.validators)
+        # Go big.Int Div floors toward negative infinity; Python // matches.
+        return total // n
+
+    def _shift_by_avg_proposer_priority(self) -> None:
+        avg = self._compute_avg_proposer_priority()
+        for v in self.validators:
+            v.proposer_priority = _clip(v.proposer_priority - avg)
+
+    # ------------------------------------------------------------ updates
+
+    def update_with_change_set(self, changes: list[Validator]) -> None:
+        """Apply validator updates (power 0 = removal), recompute priorities
+        (validator_set.go UpdateWithChangeSet + computeNewPriorities:534).
+        Drops the membership memos (hash, address index, pubkey list)."""
+        if not changes:
+            return
+        # no duplicates allowed
+        seen = set()
+        for c in changes:
+            if c.address in seen:
+                raise ValueError(f"duplicate address in changes: {c.address.hex()}")
+            seen.add(c.address)
+            if c.voting_power < 0:
+                raise ValueError("voting power cannot be negative")
+
+        removals = {c.address for c in changes if c.voting_power == 0}
+        updates = [c.copy() for c in changes if c.voting_power > 0]
+
+        for addr in removals:
+            if not self.has_address(addr):
+                raise ValueError(
+                    f"failed to find validator {addr.hex()} to remove"
+                )
+
+        by_addr = {v.address: v for v in self.validators}
+        # compute what the new total will be, for new-validator priorities
+        new_total = 0
+        merged = dict(by_addr)
+        for u in updates:
+            merged[u.address] = u
+        for addr in removals:
+            merged.pop(addr, None)
+        if not merged:
+            raise ValueError("applying the validator changes would result in empty set")
+        for v in merged.values():
+            new_total += v.voting_power
+        if new_total > MAX_TOTAL_VOTING_POWER:
+            raise ValueError("total voting power of resulting valset exceeds max")
+
+        for u in updates:
+            existing = by_addr.get(u.address)
+            if existing is None:
+                # new validator starts at -1.125 * new total power
+                # (validator_set.go:547)
+                u.proposer_priority = -(new_total + (new_total >> 3))
+            else:
+                u.proposer_priority = existing.proposer_priority
+            merged[u.address] = u
+
+        self.validators = sorted(merged.values(), key=_val_sort_key)
+        self._total_voting_power = None
+        self._pub_keys_bytes = None  # membership changed: drop the memos
+        self._hash = None
+        self._by_address = None
+        self._update_total_voting_power()
+        if self.proposer is not None and self.proposer.address not in merged:
+            self.proposer = None
+        self._shift_by_avg_proposer_priority()
+
+    # ------------------------------------------------------------- proto
+
+    def to_proto(self) -> pb.ValidatorSet:
+        return pb.ValidatorSet(
+            validators=[v.to_proto() for v in self.validators],
+            proposer=self.proposer.to_proto() if self.proposer else None,
+            total_voting_power=self.total_voting_power(),
+        )
+
+    @classmethod
+    def from_proto(cls, msg: pb.ValidatorSet) -> "ValidatorSet":
+        decoded = [Validator.from_proto(v) for v in msg.validators]
+        vs = cls(decoded)
+        # restore exact priorities (sorting in __init__ copies; map back)
+        prio = {v.address: v.proposer_priority for v in decoded}
+        for v in vs.validators:
+            v.proposer_priority = prio[v.address]
+        if msg.proposer is not None:
+            _, p = vs.get_by_address(Validator.from_proto(msg.proposer).address)
+            vs.proposer = p
+        return vs
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, ValidatorSet)
+            and self.validators == other.validators
+        )
 
     def __repr__(self):
         return f"ValidatorSet({len(self.validators)} validators, power={self.total_voting_power()})"

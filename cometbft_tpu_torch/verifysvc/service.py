@@ -1013,9 +1013,13 @@ class VerifyService:
                 bind = getattr(bv, "bind_stage", None)
                 if bind is not None:
                     bind(batch[0].stage)  # comb requests go alone
+                add_many = getattr(bv, "add_many", None)  # the comb verifier packs a request at once
                 for r in batch:
-                    for pub, msg, sig in r.items:
-                        bv.add(pub, msg, sig)
+                    if add_many is not None:
+                        add_many(r.items)
+                    else:
+                        for pub, msg, sig in r.items:
+                            bv.add(pub, msg, sig)
                 if self._submit_is_offloaded(bv):
                     # a batch that stages nothing gives its place back
                     # now, not when the host worker reaches it

@@ -26,6 +26,10 @@ class Timestamp(Message):
         Field(2, "nanos", "varint"),
     ]
 
+    @classmethod
+    def from_unix_ns(cls, ns: int) -> "Timestamp":
+        return cls(seconds=ns // 1_000_000_000, nanos=ns % 1_000_000_000)
+
     def unix_ns(self) -> int:
         return self.seconds * 1_000_000_000 + self.nanos
 

@@ -1,7 +1,9 @@
-"""Proto messages that the header and validator-set hashes merkleize (a
-copy of the encode half of cometbft_tpu/wire/types_pb.py for these
-messages; reference: proto/cometbft/{types,crypto,version}/v1,
-gogoproto wrappers).  Encoding rules are those of wire/proto.py."""
+"""Proto messages of the header and validator-set hashes, the light
+block and the evidence the light client reports (a copy of
+cometbft_tpu/wire/types_pb.py for these messages; reference:
+proto/cometbft/{types,crypto,version,evidence}/v1, gogoproto wrappers).
+Encoding and decoding rules are those of wire/proto.py; emit_default
+marks gogoproto.nullable=false embedded messages (always written)."""
 
 from __future__ import annotations
 
@@ -86,3 +88,121 @@ class SimpleValidator(Message):
         Field(1, "pub_key", "message", PublicKey),
         Field(2, "voting_power", "varint"),
     ]
+
+
+class Header(Message):
+    FIELDS = [
+        Field(1, "version", "message", Consensus, emit_default=True),
+        Field(2, "chain_id", "string"),
+        Field(3, "height", "varint"),
+        Field(4, "time", "message", Timestamp, emit_default=True),
+        Field(5, "last_block_id", "message", BlockID, emit_default=True),
+        Field(6, "last_commit_hash", "bytes"),
+        Field(7, "data_hash", "bytes"),
+        Field(8, "validators_hash", "bytes"),
+        Field(9, "next_validators_hash", "bytes"),
+        Field(10, "consensus_hash", "bytes"),
+        Field(11, "app_hash", "bytes"),
+        Field(12, "last_results_hash", "bytes"),
+        Field(13, "evidence_hash", "bytes"),
+        Field(14, "proposer_address", "bytes"),
+    ]
+
+
+class Vote(Message):
+    FIELDS = [
+        Field(1, "type", "varint"),
+        Field(2, "height", "varint"),
+        Field(3, "round", "varint"),
+        Field(4, "block_id", "message", BlockID, emit_default=True),
+        Field(5, "timestamp", "message", Timestamp, emit_default=True),
+        Field(6, "validator_address", "bytes"),
+        Field(7, "validator_index", "varint"),
+        Field(8, "signature", "bytes"),
+        Field(9, "extension", "bytes"),
+        Field(10, "extension_signature", "bytes"),
+    ]
+
+
+class Commit(Message):
+    FIELDS = [
+        Field(1, "height", "varint"),
+        Field(2, "round", "varint"),
+        Field(3, "block_id", "message", BlockID, emit_default=True),
+        Field(4, "signatures", "message", CommitSig, repeated=True),
+    ]
+
+
+# ------------------------------------------------------- validator/v1
+
+
+class Validator(Message):
+    FIELDS = [
+        Field(1, "address", "bytes"),
+        Field(2, "pub_key", "message", PublicKey),
+        Field(3, "voting_power", "varint"),
+        Field(4, "proposer_priority", "varint"),
+        Field(5, "pub_key_bytes", "bytes"),
+        Field(6, "pub_key_type", "string"),
+    ]
+
+
+class ValidatorSet(Message):
+    FIELDS = [
+        Field(1, "validators", "message", Validator, repeated=True),
+        Field(2, "proposer", "message", Validator),
+        Field(3, "total_voting_power", "varint"),
+    ]
+
+
+# ------------------------------------------------------- composite
+
+
+class SignedHeader(Message):
+    FIELDS = [
+        Field(1, "header", "message", Header),
+        Field(2, "commit", "message", Commit),
+    ]
+
+
+class LightBlockProto(Message):
+    FIELDS = [
+        Field(1, "signed_header", "message", SignedHeader),
+        Field(2, "validator_set", "message", ValidatorSet),
+    ]
+
+
+# ------------------------------------------------------- evidence/v1
+
+
+class DuplicateVoteEvidenceProto(Message):
+    FIELDS = [
+        Field(1, "vote_a", "message", Vote),
+        Field(2, "vote_b", "message", Vote),
+        Field(3, "total_voting_power", "varint"),
+        Field(4, "validator_power", "varint"),
+        Field(5, "timestamp", "message", Timestamp, emit_default=True),
+    ]
+
+
+class LightClientAttackEvidenceProto(Message):
+    FIELDS = [
+        Field(1, "conflicting_block", "message", LightBlockProto),
+        Field(2, "common_height", "varint"),
+        Field(3, "byzantine_validators", "message", Validator, repeated=True),
+        Field(4, "total_voting_power", "varint"),
+        Field(5, "timestamp", "message", Timestamp, emit_default=True),
+    ]
+
+
+class EvidenceProto(Message):
+    """oneof sum — exactly one field set."""
+
+    FIELDS = [
+        Field(1, "duplicate_vote_evidence", "message", DuplicateVoteEvidenceProto),
+        Field(2, "light_client_attack_evidence", "message", LightClientAttackEvidenceProto),
+    ]
+
+
+class EvidenceListProto(Message):
+    FIELDS = [Field(1, "evidence", "message", EvidenceProto, repeated=True)]

@@ -23,9 +23,10 @@ With ``--trace`` each worker also takes TRACE_CALLS more warm
 ``verify_commit`` calls with timing wrappers around the functions every
 tree has (the comb verifier's ``add``, ``submit``, ``collect`` and
 ``_fill_payload``, the service's ``_dispatch`` and ``_settle``, the
-client's ``submit`` and ``collect``) and reports the last call's
-timeline: each wrapped call's thread, start and end from the call's
-start (ms), and the ``add`` calls summed by thread.  It needs no tracer,
+client's ``submit`` and ``collect``; the comb verifier's ``add_many``
+where a tree has it) and reports the last call's timeline: each wrapped
+call's thread, start and end from the call's start (ms), and the
+``add`` and ``add_many`` calls summed by thread.  It needs no tracer,
 so it reads trees from before the port had one.
 
 The first worker writes the seeded keys' public keys, and the commit's
@@ -38,7 +39,8 @@ each tree's median.  Needs the card and nvcc; from the repo's root:
 
     python3 scripts/torch_service_ab.py NAME=DIR ... [--rounds 4] [--trace]
 
-e.g. ``parent=out/ab18/parent this=.``.
+e.g. ``parent=out/ab18/parent this=.``, or
+``pr17=out/ab20/pr17 pr19=out/ab20/pr19 this=. --trace``.
 """
 
 from __future__ import annotations
@@ -101,6 +103,8 @@ def traced_call(run, cv, S, client) -> dict:
              wrap(S.VerifyService, "_settle", "svc.settle"),
              wrap(client.ServiceBatchVerifier, "submit", "client.submit"),
              wrap(client.ServiceBatchVerifier, "collect", "client.collect")]
+    if hasattr(cv.CombBatchVerifier, "add_many"):  # a tree whose scheduler adds a request at once
+        saved.append(wrap(cv.CombBatchVerifier, "add_many", "comb.add_many", summed=True))
     try:
         for _ in range(TRACE_CALLS):
             log.clear()

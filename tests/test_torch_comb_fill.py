@@ -139,3 +139,151 @@ def test_a_demoted_batch_replays_its_items_in_add_order():
         bv.add(*it)
     assert bv._fallback is not None and bv._fallback._items == items
     assert bv.verify() == (False, [True, False, True, True])
+
+
+def _signed(seed, nkeys, nset):
+    """nkeys host keys of which the first nset make the cached set."""
+    rng = np.random.default_rng(seed)
+    keys = [host.PrivKey.from_seed(rng.bytes(32)) for _ in range(nkeys)]
+    pubs = [k.pub_key().data for k in keys]
+    return rng, keys, pubs, cv.ValsetCombCache().ensure(pubs[:nset], device="cpu")
+
+
+def _item(keys, pubs, i, tag, flip=False):
+    m = b"bulk-%d-%s" % (i, tag)
+    return (pubs[i], m + (b"!" if flip else b""), keys[i].sign(m))
+
+
+def _state(bv):
+    return (list(bv._items), list(bv._rows), bytes(bv._sigs), bytes(bv._msgs), list(bv._lens),
+            None if bv._fallback is None else list(bv._fallback._items))
+
+
+@pytest.mark.parametrize("split", [[20], [7, 13], [1, 1, 18], [0, 20]], ids=["one", "two", "three", "empty-first"])
+def test_add_many_packs_as_the_per_item_adds(split):
+    """add_many over a request (or over several) leaves the batch exactly
+    as the per-item adds do, and its stage fills the JAX payload."""
+    rng, keys, pubs, entry = _signed(2040, 24, 24)
+    order = rng.permutation(24)[:20]
+    items = [_item(keys, pubs, int(i), b"x" * int(rng.integers(100, 140)), flip=(j == 9))
+             for j, i in enumerate(order)]
+    one, bulk = cv.CombBatchVerifier(entry), cv.CombBatchVerifier(entry)
+    for it in items:
+        one.add(*it)
+    k = 0
+    for n in split:
+        bulk.add_many(items[k:k + n])
+        k += n
+    assert _state(bulk) == _state(one) and bulk._fallback is None
+    rows = np.asarray([entry.index[p] for p, _, _ in items], dtype=np.int64)
+    got = cv._fill_payload(cv._PayloadSlab(entry.vpad, cv._payload_width(items), pinned=False),
+                           bytes(bulk._sigs), bytes(bulk._msgs), np.frombuffer(bulk._lens, dtype=np.int64), rows)
+    assert np.array_equal(got, jcv.assemble_payload(items, rows, entry.vpad))
+    assert bulk.verify() == one.verify() == (False, [j != 9 for j in range(20)])
+
+
+@pytest.mark.parametrize("case", ["foreign", "repeat-within", "repeat-across", "foreign-after-demoted"])
+def test_add_many_demotes_as_add_does(case):
+    """A key outside the set, or a row twice (within one request or
+    against an earlier one), demotes the batch before anything of the
+    request is packed; the uncached verifier gets every item in add()
+    order, as the per-item adds give it."""
+    rng, keys, pubs, entry = _signed(2041, 12, 10)
+    first = [_item(keys, pubs, i, b"a") for i in (4, 2, 7)]
+    if case == "foreign":
+        second = [_item(keys, pubs, i, b"b", flip=(i == 1)) for i in (1, 11, 3)]
+    elif case == "repeat-within":
+        second = [_item(keys, pubs, i, b"b") for i in (1, 5, 1)]
+    elif case == "repeat-across":
+        second = [_item(keys, pubs, i, b"b", flip=(i == 2)) for i in (0, 2)]
+    else:
+        second = [_item(keys, pubs, i, b"b") for i in (10, 0)]
+    third = [_item(keys, pubs, i, b"c") for i in (6, 8)]
+    one, bulk = cv.CombBatchVerifier(entry), cv.CombBatchVerifier(entry)
+    for it in first + second + third:
+        one.add(*it)
+    for req in (first, second, third):
+        bulk.add_many(req)
+    assert bulk._fallback is not None and one._fallback is not None
+    assert bulk._fallback._items == one._fallback._items == bulk._items == first + second + third
+    assert bulk.verify() == one.verify()
+
+
+def test_add_many_after_submit_keeps_the_tickets_snapshot():
+    """add_many after submit() copies the packed arrays first: the ticket
+    verifies the batch as it was, and the next verify sees every item."""
+    rng, keys, pubs, entry = _signed(2042, 16, 16)
+    items = [_item(keys, pubs, i, b"s", flip=(i == 3)) for i in range(10)]
+    late = [_item(keys, pubs, i, b"late") for i in (12, 14)]
+    filled = []
+    real_fill = cv._fill_payload
+
+    def capture(slab, *packed_and_rows):
+        out = real_fill(slab, *packed_and_rows)
+        filled.append(out.copy())
+        return out
+
+    gate = threading.Event()
+    cv._staging_executor().put(lambda: gate.wait(WAIT))
+    bv = cv.CombBatchVerifier(entry)
+    try:
+        cv._fill_payload = capture
+        bv.add_many(items)
+        ticket = bv.submit()
+        bv.add_many(late)
+        gate.set()
+        assert bv.collect(ticket) == (False, [i != 3 for i in range(10)])
+        assert bv.verify() == (False, [i != 3 for i in range(10)] + [True, True])
+    finally:
+        cv._fill_payload = real_fill
+        gate.set()
+    rows = np.arange(10, dtype=np.int64)
+    assert np.array_equal(filled[0], jcv.assemble_payload(items, rows, entry.vpad))
+    assert np.array_equal(filled[1], jcv.assemble_payload(items + late, np.append(rows, [12, 14]), entry.vpad))
+
+
+@pytest.mark.parametrize("bad", ["pub", "sig", "mlen"])
+def test_add_many_refuses_malformed_items_whole(bad):
+    """The length checks of add(), over the whole request before any item
+    is added."""
+    rng, keys, pubs, entry = _signed(2043, 4, 4)
+    items = [_item(keys, pubs, i, b"m") for i in range(4)]
+    p, m, s = items[2]
+    items[2] = {"pub": (p[:31], m, s), "sig": (p, m, s + b"\0"), "mlen": (p, b"\0" * (1 << 24), s)}[bad]
+    bv = cv.CombBatchVerifier(entry)
+    with pytest.raises(ValueError):
+        bv.add_many(items)
+    with pytest.raises(ValueError):
+        cv.CombBatchVerifier(entry).add(*items[2])
+    assert len(bv) == 0 and bv._fallback is None and not bv._sigs
+
+
+def test_the_service_packs_a_comb_request_with_one_add_many(monkeypatch):
+    """The verify service's dispatch hands a comb request to add_many
+    once, and add() not at all; the verdicts are the per-item ones."""
+    from cometbft_tpu_torch.verifysvc import service as S
+    from cometbft_tpu_torch.verifysvc.service import Klass
+
+    rng, keys, pubs, entry = _signed(2044, 12, 12)
+    items = [_item(keys, pubs, i, b"svc", flip=(i == 5)) for i in range(12)]
+    calls = {"add": 0, "add_many": 0}
+    real_add, real_many = cv.CombBatchVerifier.add, cv.CombBatchVerifier.add_many
+
+    def add(self, *a):
+        calls["add"] += 1
+        return real_add(self, *a)
+
+    def add_many(self, its):
+        calls["add_many"] += 1
+        return real_many(self, its)
+
+    monkeypatch.setattr(cv.CombBatchVerifier, "add", add)
+    monkeypatch.setattr(cv.CombBatchVerifier, "add_many", add_many)
+    svc = S.VerifyService(device="cpu")
+    try:
+        t = svc.submit(items, Klass.CONSENSUS, mode=("comb", entry))
+        ok, per = t.collect(WAIT)
+    finally:
+        svc.stop()
+    assert calls == {"add": 0, "add_many": 1}
+    assert (ok, per) == (False, [i != 5 for i in range(12)])

@@ -1610,3 +1610,55 @@ def test_the_fill_on_the_card_equals_the_one_shot_assembly(dev, svc_stop):
             assert np.array_equal(got[live], want[live])
     finally:
         cv._fill_payload = real_fill
+
+
+@pytest.mark.parametrize("route", ["uncached", "comb"])
+def test_light_client_sync_on_the_card_matches_cpu(dev, svc_stop, monkeypatch, route):
+    """A 64-validator skipping sync (the set moving by 16 keys every 8
+    heights, so the bisection pivots) and a sequential one, on the card
+    and with device="cpu": the same provider heights, stored heights and
+    stored bytes; the card's hops launched K2 -> K5 (uncached) or
+    K1 -> K2 -> K4 (the set's tables, COMETBFT_TPU_COMB_MIN=2)."""
+    import struct
+
+    import torch_light_corpus as LCo
+
+    from cometbft_tpu_torch import light
+    from cometbft_tpu_torch.models import comb_verifier as cv
+    from cometbft_tpu_torch.ops import comb, ed25519 as E, sha2
+    from cometbft_tpu_torch.store import MemDB
+
+    keys = LCo.make_keys(64_064, 64 + 16 * 6)
+    chain = LCo.Chain("cuda-light", keys, 40, window=64, shift=16, every=8)
+    now = LCo.GENESIS_NS + 100 * LCo.BLOCK_NS
+
+    def sync(device, mode, target):
+        if route == "comb" and device == "cuda":  # the CPU reference stays on the plain uncached route
+            monkeypatch.setenv("COMETBFT_TPU_COMB_MIN", "2")
+        else:
+            monkeypatch.delenv("COMETBFT_TPU_COMB_MIN", raising=False)
+        primary, witness = LCo.Provider(chain), LCo.Provider(chain)
+        store = light.LightStore(MemDB())
+        c = light.Client("cuda-light", light.TrustOptions(10**18, 1, chain.headers[1].hash()), primary, [witness],
+                         store, mode=mode, now_fn=lambda: now, device=device,
+                         comb_cache=cv.ValsetCombCache())
+        lb = c.verify_light_block_at_height(target)
+        stored = [(struct.unpack(">q", k[3:])[0], v) for k, v in store.db.iterator(b"lb:", b"lb:\xff")]
+        return lb.hash, primary.asked, witness.asked, stored
+
+    for mode, target in ((light.SKIPPING, 40), (light.SEQUENTIAL, 10)):
+        for d in (sha2.LAUNCHES, comb.LAUNCHES, E.LAUNCHES):
+            for k in d:
+                d[k] = 0
+        got = sync("cuda", mode, target)
+        launches = {**sha2.LAUNCHES, **comb.LAUNCHES, **E.LAUNCHES}
+        want = sync("cpu", mode, target)
+        assert got == want
+        assert got[0] == chain.headers[target].hash()
+        if mode == light.SKIPPING:
+            assert [h for h, _ in got[3]] == LCo.expected_trace(chain, 1, target)
+        if route == "comb":
+            assert launches["verify_cached"] > 0 and launches["verify_batch"] == 0, launches
+        else:
+            assert launches["verify_batch"] > 0 and launches["verify_cached"] == 0, launches
+        assert launches["sha512_blocks"] > 0

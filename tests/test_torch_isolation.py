@@ -40,6 +40,11 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "cometbft_tpu_torch/models/comb_verifier.py" in names
     assert "chip_smoke.py" in names
+    # the light client's modules, the evidence checks, the stores and the key codec
+    assert {"cometbft_tpu_torch/light/client.py", "cometbft_tpu_torch/light/detector.py",
+            "cometbft_tpu_torch/light/provider.py", "cometbft_tpu_torch/light/store.py",
+            "cometbft_tpu_torch/evidence/verify.py", "cometbft_tpu_torch/store/db.py",
+            "cometbft_tpu_torch/crypto/encoding.py", "cometbft_tpu_torch/types/evidence.py"} <= names
     assert len(names) >= 20
 
 
@@ -78,6 +83,35 @@ def test_verify_commit_default_device_raises_without_card(no_card):
         validation.verify_commit("c", vals, T.BlockID(), 1, T.Commit())
     with pytest.raises(NoCudaDevice):
         validation.verify_commit_light("c", vals, T.BlockID(), 1, T.Commit())
+
+
+def test_light_client_and_evidence_default_device_raise_without_card(no_card):
+    """The light client's root check, a provider's served block and the
+    attack evidence's check run on the card by default."""
+    from cometbft_tpu_torch import light, types as T
+    from cometbft_tpu_torch._device import NoCudaDevice
+    from cometbft_tpu_torch.evidence import verify_light_client_attack
+    from cometbft_tpu_torch.store import MemDB
+    from cometbft_tpu_torch.types.evidence import LightClientAttackEvidence
+
+    keys = _small_set()
+    vals = T.ValidatorSet([T.Validator(k.pub_key(), 10) for k in keys])
+    hdr = T.Header(chain_id="c", height=1, validators_hash=vals.hash(device=False),
+                   next_validators_hash=vals.hash(device=False))
+    bid = T.BlockID(hash=hdr.hash(), part_set_header=T.PartSetHeader(1, b"\1" * 32))
+    sigs = [T.CommitSig(2, v.address, None, b"\2" * 64) for v in vals.validators]
+    lb = T.LightBlock(T.SignedHeader(hdr, T.Commit(height=1, round=0, block_id=bid, signatures=sigs)),
+                      T.ValidatorSet([T.Validator(k.pub_key(), 10) for k in keys]))
+
+    class Primary:
+        def light_block(self, h):
+            return lb
+
+    with pytest.raises(NoCudaDevice):
+        light.Client("c", light.TrustOptions(10**18, 1, lb.hash), Primary(), [], light.LightStore(MemDB()))
+    ev = LightClientAttackEvidence(lb, 1, total_voting_power=40)
+    with pytest.raises(NoCudaDevice):
+        verify_light_client_attack(ev, lb.signed_header, lb.signed_header, vals, "c")
 
 
 def test_factory_cache_and_convert_default_device_raise_without_card(no_card):
