@@ -12,8 +12,11 @@ verify plane over torch.distributed at world 1 and 4, the verify
 service under load, and the blocksync replay of 5,000-validator commits
 through the comb path's staging thread, the light client's bisection,
 store and divergence detector at 10,000 validators with the attack
-evidence they produce and its check, and the service's failover
-watchdog tripping to the host and restoring — on one NVIDIA card, holds
+evidence they produce and its check, a full node's block and state
+stores with the evidence pool over them and the light client's JSON-RPC
+front (HTTP provider, verifying client, proxy) at 10,000 validators, and
+the service's failover watchdog tripping to the host and restoring — on
+one NVIDIA card, holds
 each kernel against its plain PyTorch version, and prints the card's
 numbers.  Every path that
 crypto/batch.create_batch_verifier serves (verify_commit, the light
@@ -124,7 +127,7 @@ it and read just after it.
      fails);
  21. one JSON line with every kernel (rows 23-26 of the kernel table too:
      the sharded entries, their per-rank kernels' bounds summed), then the
-     contract line; it runs after phases 22-27 (27 before 26):
+     contract line; it runs after phases 22-28 (27 and 28 before 26):
  22. the sharded plane at world 1 (a one-rank NCCL group in this
      process, the comb path bound with set_active_mesh): verify_commit
      over phase 2's set on the good and the planted commit,
@@ -190,6 +193,23 @@ it and read just after it.
      one duplicate vote through verify_duplicate_vote; (c) BASELINE.json
      config 2: a SEQUENTIAL sync over 64 heights of 150 validators, every
      hop K2 -> K5, its p50;
+ 28. a full node's stores and its JSON-RPC front at 10,000 validators
+     (tests/torch_rpc_node.py): (a) GenesisDoc -> make_genesis_state ->
+     make_block with 4,096 txs of 256 bytes (data_hash on K7 + K8), its
+     PartSet, a commit signed by every validator, BlockStore.save_block
+     and StateStore.save over SQLiteDB for 8 heights, the set moving by
+     1,000 keys after height 3, every block and part read back with the
+     proofs checked; (b) a SKIPPING light.Client syncing 1 -> 8 through
+     HTTPProvider over the node's loopback JSON-RPC (the sets' hashes on
+     K7 + K8, the commit checks on K2 -> K5 or K1 -> K2 -> K4), every
+     light block it fetched equal to the stores' own; (c) VerifyingClient
+     reading a block, a commit, a set, a tx and a data proof (merkle_proof
+     through the PROOF class: K7 -> K8 -> K9, the class's device minimum
+     set to 1 for this lone query), a forged block refused,
+     LightProxy answering; (d) EvidencePool over the same stores: a
+     duplicate vote added, a tampered one refused, a lunatic attack
+     checked under CONSENSUS, both committed in the next block; each
+     step's ms and each path's launches;
  26. the verify service's failover, on the card's global service: (a)
      phase 4's verify_commit with failover on (the watchdog ticking, the
      health sentinel started) and off, in turns, their p50s; (b)
@@ -3090,6 +3110,249 @@ def light_phases(dev, log, require, zero_counts, read_counts, d):
     return rec
 
 
+# ---------------------------------------------------------------- node
+# Phase 28: a full node's stores, the evidence pool over them and the light
+# client's RPC front at 10,000 validators (tests/torch_rpc_node.py: the
+# chain and the loopback JSON-RPC node, the port's own modules).
+NODE_HEIGHTS = 8  # the chain's heights (the set moves after NODE_SHIFT_AFTER)
+NODE_SHIFT = 1_000  # keys replaced ...
+NODE_SHIFT_AFTER = 3  # ... by this height's FinalizeBlock (in effect at 5)
+NODE_TXS = 4_096  # txs a block ...
+NODE_TX_BYTES = 256  # ... of this many bytes: 1 MiB, under the default max_bytes of 4 MiB
+NODE_RPC_TIMEOUT_S = 60  # every JSON-RPC request's
+
+
+def node_phases(dev, log, require, zero_counts, read_counts, d):
+    """Phase 28 of main(): (a) a node's stores over SQLiteDB: a chain of
+    NODE_HEIGHTS blocks of NODE_TXS txs (data_hash on K7 + K8) signed by
+    V_MAIN validators, the set moving by NODE_SHIFT keys, every block and
+    part read back with the proofs checked; (b) a SKIPPING light.Client
+    syncing 1 -> top through HTTPProvider over the node's JSON-RPC, every
+    light block it fetched equal to the stores' own; (c) VerifyingClient's
+    block, commit, validators, tx and data_proof (merkle_proof through the
+    PROOF class: K7 -> K8 -> K9, COMETBFT_TPU_PROOF_DEVICE_MIN=1 for the
+    lone query), a forged block refused, LightProxy
+    answering; (d) EvidencePool over the same stores: a duplicate vote
+    checked, added and committed in the next block, a tampered one refused,
+    a lunatic LightClientAttackEvidence checked against the stored chain
+    (K1 -> K2 -> K4 or K2 -> K5 under CONSENSUS).  Returns the record."""
+    import copy
+    import tempfile
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_rpc_node as RN
+
+    from cometbft_tpu_torch import light
+    from cometbft_tpu_torch import types as T
+    from cometbft_tpu_torch.evidence import ErrInvalidEvidence, EvidencePool
+    from cometbft_tpu_torch.light import rpc as LR
+    from cometbft_tpu_torch.models import comb_verifier as cv
+    from cometbft_tpu_torch.rpc import HTTPClient
+    from cometbft_tpu_torch.state import StateStore
+    from cometbft_tpu_torch.store import BlockStore, SQLiteDB
+
+    t_phase = time.perf_counter()
+    smi = d["smi"]
+    rec = {}
+    chain_id = CHAIN_ID + "-node"
+    with tempfile.TemporaryDirectory(prefix="node-") as tmp:
+        # ------------------------------------------------ (a) the node's stores
+        t0 = time.perf_counter()
+        keys = RN.make_keys(SEED + 28, V_MAIN + NODE_SHIFT)
+        t_keys = time.perf_counter() - t0
+        bs, ss = BlockStore(SQLiteDB(os.path.join(tmp, "blockstore.db"))), StateStore(SQLiteDB(os.path.join(tmp, "state.db")))
+        zero_counts()
+        t0 = time.perf_counter()
+        chain = RN.NodeChain(chain_id, keys, V_MAIN, bs, ss, txs_per_block=NODE_TXS, tx_bytes=NODE_TX_BYTES,
+                             shift_after=NODE_SHIFT_AFTER, shift=NODE_SHIFT, seed=SEED + 28, device=dev)
+        for _ in range(NODE_HEIGHTS):
+            chain.advance()
+        t_build = time.perf_counter() - t0
+        c_build = read_counts("node_build")
+        require(c_build["sha256_blocks"] >= NODE_HEIGHTS and c_build["merkle_tree"] >= NODE_HEIGHTS,
+                f"(a) the blocks' data hashes did not run K7 + K8: {c_build}")
+        t0 = time.perf_counter()
+        n_parts = 0
+        for h in range(1, NODE_HEIGHTS + 1):
+            meta = bs.load_block_meta(h)
+            psh = meta.block_id.part_set_header
+            recv = T.PartSet(T.PartSetHeader(psh.total, psh.hash))
+            for i in range(psh.total):
+                require(recv.add_part(bs.load_block_part(h, i)), f"(a) part {i} of block {h} refused")
+            n_parts += psh.total
+            back = T.Block.decode(recv.assemble())
+            require(back.hash() == chain.blocks[h].hash() == meta.block_id.hash
+                    and bs.load_block(h).data.txs == chain.blocks[h].data.txs,
+                    f"(a) block {h} did not read back")
+        t_read = time.perf_counter() - t0
+        vals_at = {h: chain.states[h - 1].validators for h in range(1, NODE_HEIGHTS + 1)}
+        require(vals_at[NODE_SHIFT_AFTER + 2].hash(dev) != vals_at[NODE_SHIFT_AFTER + 1].hash(dev)
+                and len(vals_at[NODE_HEIGHTS].validators) == V_MAIN, "(a) the set did not move")
+        steps = {k: [round(x, 1) for x in v] for k, v in chain.ms.items()}
+        log(f"[28a] ({smi}) node stores over SQLiteDB: {NODE_HEIGHTS} blocks of {NODE_TXS} txs of "
+            f"{NODE_TX_BYTES} bytes, {V_MAIN} validators of power 10, {NODE_SHIFT} keys replaced after height "
+            f"{NODE_SHIFT_AFTER}; keys {t_keys:.1f} s, chain {t_build:.1f} s; ms a height: "
+            + "; ".join(f"{k} {v}" for k, v in steps.items())
+            + f"; {n_parts} parts read back with their proofs in {t_read * 1e3:.1f} ms; launches {c_build}")
+        rec.update(node_build_s=t_build, node_step_ms=chain.ms, node_read_back_ms=t_read * 1e3)
+
+        node = RN.RPCNode(bs, ss, device=dev)
+        node.start()
+        cache = cv.ValsetCombCache(max_entries=4)
+        try:
+            # ------------------------------------------------ (b) sync over HTTP
+            fetched = []
+
+            class Logged(LR.HTTPProvider):
+                def light_block(self, height):
+                    t_lb = time.perf_counter()
+                    lb = super().light_block(height)
+                    fetched.append((height, lb, (time.perf_counter() - t_lb) * 1e3))
+                    return lb
+
+            def provider():
+                return Logged(chain_id, HTTPClient(node.addr, timeout=NODE_RPC_TIMEOUT_S), device=dev)
+
+            now = RN.GENESIS_NS + 3600 * NS
+            zero_counts()
+            t0 = time.perf_counter()
+            client = light.Client(chain_id, light.TrustOptions(TRUSTING_PERIOD_NS, 1, chain.blocks[1].hash()),
+                                  provider(), [provider()], light.LightStore(SQLiteDB(os.path.join(tmp, "light.db"))),
+                                  now_fn=lambda: now, device=dev, comb_cache=cache)
+            lb = client.verify_light_block_at_height(NODE_HEIGHTS)
+            t_sync = (time.perf_counter() - t0) * 1e3
+            c_sync = read_counts("node_http_sync")
+            require(lb.hash == chain.blocks[NODE_HEIGHTS].hash(), "(b) the synced block is not the node's")
+            require(c_sync["sha256_blocks"] >= 2 and c_sync["merkle_tree"] >= 2 and c_sync["sha512_blocks"] >= 2
+                    and c_sync["verify_cached"] + c_sync["verify_batch"] >= 2,
+                    f"(b) the sync's set hashes or commit checks missed the kernels: {c_sync}")
+            store_view = light.BlockStoreProvider(chain_id, bs, ss, device=dev)
+            t0 = time.perf_counter()
+            for h, got, _ in fetched:
+                h = h or bs.height
+                if h < bs.height:
+                    want = store_view.light_block(h)
+                    want_sh, want_vals = want.signed_header, want.validator_set
+                else:  # the top: its header and seen commit, as the commit route serves it
+                    want_sh = T.SignedHeader(T.Header.from_proto(bs.load_block_meta(h).header), bs.load_seen_commit(h))
+                    want_vals = ss.load_validators(h)
+                require(got.signed_header.to_proto().encode() == want_sh.to_proto().encode()
+                        and [v.to_proto().encode() for v in got.validator_set.validators]
+                        == [v.to_proto().encode() for v in want_vals.validators],
+                        f"(b) the light block at {h} is not the stores' own")
+            t_cmp = (time.perf_counter() - t0) * 1e3
+            log(f"[28b] ({smi}) SKIPPING sync 1 -> {NODE_HEIGHTS} through HTTPProvider over loopback JSON-RPC: "
+                f"{t_sync:.1f} ms; light blocks fetched (height, ms) "
+                f"{[(h, round(ms, 1)) for h, _, ms in fetched]} ({node.calls.get('validators', 0)} validators pages "
+                f"of 100, {node.calls.get('commit', 0)} commits), each equal to the stores' own ({t_cmp:.1f} ms); "
+                f"launches {c_sync}")
+            rec.update(node_http_sync_ms=t_sync, node_light_block_ms=[ms for _, _, ms in fetched])
+
+            # ------------------------------------------------ (c) verified reads
+            vc = LR.VerifyingClient(HTTPClient(node.addr, timeout=NODE_RPC_TIMEOUT_S), client)
+            mid = NODE_SHIFT_AFTER + 1
+            tx_idx = NODE_TXS - 3
+            tx = chain.blocks[mid].data.txs[tx_idx]
+            reads = {}
+            # one light client's lone query goes to the card: the JAX default (64 coalesced
+            # queries a tree) would answer it on the host
+            prev_min = os.environ.get("COMETBFT_TPU_PROOF_DEVICE_MIN")
+            os.environ["COMETBFT_TPU_PROOF_DEVICE_MIN"] = "1"
+            zero_counts()
+            try:
+                for what, call in (("block", lambda: vc.block(mid)), ("commit", lambda: vc.commit(NODE_HEIGHTS)),
+                                   ("validators", lambda: vc.validators(NODE_HEIGHTS)),
+                                   ("tx", lambda: vc.tx(T.tx_hash(tx).hex())),
+                                   ("data_proof", lambda: vc.data_proof(mid, tx_idx))):
+                    t0 = time.perf_counter()
+                    out = call()
+                    reads[what] = (time.perf_counter() - t0) * 1e3
+                    if what == "data_proof":
+                        proof = out
+            finally:
+                if prev_min is None:
+                    os.environ.pop("COMETBFT_TPU_PROOF_DEVICE_MIN")
+                else:
+                    os.environ["COMETBFT_TPU_PROOF_DEVICE_MIN"] = prev_min
+            c_reads = read_counts("node_verified_reads")
+            require(c_reads["merkle_gather"] >= 1 and c_reads["merkle_tree"] >= 1,
+                    f"(c) merkle_proof did not run K7 -> K8 -> K9: {c_reads}")
+            require(proof["root_hash"] == chain.blocks[mid].header.data_hash.hex().upper(),
+                    "(c) the data proof's root is not the block's data_hash")
+            forged = T.Block.decode(chain.blocks[mid].encode())
+            forged.data = T.Data(forged.data.txs[:-1] + [b"forged"])
+            forged.header.data_hash = b""
+            forged.fill_header(dev)
+            node.forged[mid] = forged
+            try:
+                vc.block(mid)
+                raise AssertionError("(c) the forged block verified")
+            except LR.VerificationFailed as e:
+                refused = str(e)
+            node.forged.clear()
+            proxy = LR.LightProxy(vc)
+            proxy.start("127.0.0.1:0")
+            try:
+                via = HTTPClient(proxy.listen_addr, timeout=NODE_RPC_TIMEOUT_S).call("commit", height=mid)
+            finally:
+                proxy.stop()
+            require(via == vc.commit(mid), "(c) the proxy's answer is not the verifying client's")
+            log(f"[28c] ({smi}) VerifyingClient reads (ms) " + json.dumps({k: round(v, 1) for k, v in reads.items()})
+                + f"; tx {tx_idx} of block {mid} proved into its data_hash; forged block refused ({refused[:60]}...); "
+                f"LightProxy answered commit {mid}; launches {c_reads}")
+            rec.update(node_verified_reads_ms=reads)
+
+            # ------------------------------------------------ (d) the evidence pool
+            pool = EvidencePool(SQLiteDB(os.path.join(tmp, "evidence.db")), ss, bs, device=dev, comb_cache=cache)
+            t0 = time.perf_counter()
+            dve = chain.duplicate_vote(mid, index=7)
+            lca = chain.lunatic(2, mid)
+            t_ev_inputs = time.perf_counter() - t0
+            ev_ms = {}
+            zero_counts()
+            t0 = time.perf_counter()
+            pool.add_evidence(dve)
+            ev_ms["add_duplicate_vote"] = (time.perf_counter() - t0) * 1e3
+            bad = copy.copy(dve)
+            bad.vote_b = copy.copy(dve.vote_b)
+            bad.vote_b.signature = bytes(64)
+            try:
+                pool.add_evidence(bad)
+                raise AssertionError("(d) a tampered duplicate vote was admitted")
+            except ErrInvalidEvidence as e:
+                bad_reason = str(e.reason)
+            t0 = time.perf_counter()
+            pool.check_evidence([dve, lca])
+            ev_ms["check_block_evidence"] = (time.perf_counter() - t0) * 1e3
+            c_ev = read_counts("node_evidence")
+            require(c_ev["sha512_blocks"] >= 2 and c_ev["verify_cached"] + c_ev["verify_batch"] >= 2,
+                    f"(d) the lunatic evidence's commit checks missed the kernels: {c_ev}")
+            require(pool.is_pending(dve) and pool.is_pending(lca) and pool.size() == 2,
+                    "(d) the checked evidence is not pending")
+            zero_counts()
+            t0 = time.perf_counter()
+            block = chain.advance(evidence=[dve, lca])
+            pool.update(chain.state, block.evidence)
+            ev_ms["commit_in_next_block"] = (time.perf_counter() - t0) * 1e3
+            c_commit = read_counts("node_evidence_commit")
+            require(pool.is_committed(dve) and pool.is_committed(lca) and pool.size() == 0
+                    and bs.load_block(NODE_HEIGHTS + 1).evidence_hash() == block.header.evidence_hash,
+                    "(d) the evidence was not committed")
+            log(f"[28d] ({smi}) EvidencePool over the stores: a duplicate vote at {mid} added, a tampered one "
+                f"refused ({bad_reason}), a lunatic attack from common height 2 on {mid} "
+                f"({len(lca.byzantine_validators)} byzantine validators, power {lca.total_voting_power}) checked with "
+                f"the vote under CONSENSUS, both committed in block {NODE_HEIGHTS + 1}; ms "
+                + json.dumps({k: round(v, 1) for k, v in ev_ms.items()})
+                + f" (inputs signed in {t_ev_inputs:.1f} s); launches {c_ev}, the next block's {c_commit}")
+            rec.update(node_evidence_ms=ev_ms, node_evidence_launches=c_ev)
+        finally:
+            node.stop()
+            cache.join_async()
+    rec["node_phase_s"] = time.perf_counter() - t_phase
+    log(f"[28] ({smi}) node phase {rec['node_phase_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4138,6 +4401,10 @@ def main() -> int:
     light_record = light_phases(dev, log, require, zero_counts, read_counts, {"smi": smi})
     no_failover("27")
 
+    # ---------------------------------------------------- 28. the node's stores, pool and RPC front
+    node_record = node_phases(dev, log, require, zero_counts, read_counts, {"smi": smi})
+    no_failover("28")
+
     # ---------------------------------------------------- 26. the failover
     failover_record = failover_phases(dev, log, require, zero_counts, read_counts, {
         "smi": smi, "chain_id": CHAIN_ID, "vals": vals, "bid": bid, "height": height, "good": good,
@@ -4348,7 +4615,9 @@ def main() -> int:
         f"{failover_record['failover_phase_s']:.1f} s; light client at {V_MAIN}: sync 1 -> {LIGHT_HEIGHTS} "
         f"{light_record['light_sync_ms']['cold']:.1f} ms cold, {light_record['light_sync_ms']['warm']:.1f} warm, "
         f"evidence check {light_record['evidence_check_ms']:.2f} ms, config 2 hop p50 "
-        f"{light_record['light_config2_hop_p50_ms']:.2f} ms; light phase {light_record['light_phase_s']:.1f} s")
+        f"{light_record['light_config2_hop_p50_ms']:.2f} ms; light phase {light_record['light_phase_s']:.1f} s; "
+        f"node at {V_MAIN}: {NODE_HEIGHTS} blocks built and saved in {node_record['node_build_s']:.1f} s, HTTP sync "
+        f"{node_record['node_http_sync_ms']:.1f} ms; node phase {node_record['node_phase_s']:.1f} s")
     log(f"[21] {smi}: beside run 9m (ms) — light-client p50 {p50_l:.2f} ({RUN_9M['light-client p50']}), "
         f"uncached p50 {p50_u:.2f} ({RUN_9M['uncached p50']}), set change's first call {change_first_ms:.1f} "
         f"({RUN_9M['set change first call']}), churn build {churn_ms:.1f} beside it "
@@ -4369,7 +4638,8 @@ def main() -> int:
                     "light_10k_p50_ms": p50_light, "proofs_16k_p50_ms": p50_proofs,
                     "multiproof_16k_p50_ms": p50_multi, "multiproof_dedup": dedup,
                     "host_proofs_16k_ms": host_proofs_ms, **secp_record, **bls_record,
-                    **shard_record, **svc_record, **replay_record, **light_record, **failover_record}))
+                    **shard_record, **svc_record, **replay_record, **light_record, **node_record,
+                    **failover_record}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

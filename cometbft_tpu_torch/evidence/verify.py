@@ -1,21 +1,24 @@
 """Evidence verification against full-node state (reference:
-internal/evidence/verify.go; the host checks of
-cometbft_tpu/evidence/verify.py): the expiry gate (:20-46),
-VerifyDuplicateVote (:164) and VerifyLightClientAttack (:110).
+internal/evidence/verify.go; a copy of cometbft_tpu/evidence/verify.py):
+verify() with its time and expiry gates (:20-46), VerifyDuplicateVote
+(:164) and VerifyLightClientAttack (:110).
 
 The commit checks of a light-client attack go through
 types/validation.py, so through the verify service and the card's
 ed25519 kernels, under Klass.CONSENSUS: evidence carried by a proposed
 block is checked on the consensus critical path, and every signature is
 counted (the evidence will punish validators, so every flag must be
-right).  ``device`` and ``comb_cache`` reach both checks.
+right).  ``device`` and ``comb_cache`` reach both checks; verify()
+takes them from the pool.
 """
 
 from __future__ import annotations
 
 from fractions import Fraction
 
+from ..types.block import Header
 from ..types.evidence import DuplicateVoteEvidence, LightClientAttackEvidence
+from ..types.light_block import SignedHeader
 from ..types.validation import (
     verify_commit_light,
     verify_commit_light_trusting,
@@ -43,6 +46,67 @@ def is_evidence_expired(
         age_blocks > params.max_age_num_blocks
         and age_ns > params.max_age_duration_ns
     )
+
+
+def verify(evpool, ev) -> None:
+    """Full verification of one piece of evidence against pool state
+    (verify.go:20): the block time at the evidence's height, expiry, then
+    the kind's own check on the stored validator set and headers, on the
+    pool's ``device`` and ``comb_cache``."""
+    state = evpool.state
+    params = state.consensus_params.evidence
+
+    meta = evpool.block_store.load_block_meta(ev.height())
+    if meta is None:
+        raise EvidenceVerificationError(
+            f"no header at evidence height {ev.height()}"
+        )
+    ev_time = meta.header.time
+    if ev.time().unix_ns() != ev_time.unix_ns():
+        raise EvidenceVerificationError(
+            f"evidence time {ev.time()} differs from block time {ev_time}"
+        )
+    if is_evidence_expired(
+        state.last_block_height,
+        state.last_block_time.unix_ns(),
+        ev.height(),
+        ev_time.unix_ns(),
+        params,
+    ):
+        raise EvidenceVerificationError(
+            f"evidence from height {ev.height()} is too old "
+            f"(min height {state.last_block_height - params.max_age_num_blocks})"
+        )
+
+    if isinstance(ev, DuplicateVoteEvidence):
+        val_set = evpool.state_store.load_validators(ev.height())
+        if val_set is None:
+            raise EvidenceVerificationError(
+                f"no validator set stored for height {ev.height()}"
+            )
+        verify_duplicate_vote(ev, state.chain_id, val_set)
+    elif isinstance(ev, LightClientAttackEvidence):
+        common_sh = _signed_header_at(evpool.block_store, ev.height())
+        common_vals = evpool.state_store.load_validators(ev.height())
+        if common_vals is None:
+            raise EvidenceVerificationError(
+                f"no validator set stored for height {ev.height()}"
+            )
+        conflict_h = ev.conflicting_block.height
+        if conflict_h != ev.height():
+            trusted_sh = _signed_header_at_or_latest(
+                evpool.block_store, conflict_h, ev
+            )
+        else:
+            trusted_sh = common_sh
+        verify_light_client_attack(
+            ev, common_sh, trusted_sh, common_vals, state.chain_id,
+            device=evpool.device, comb_cache=evpool.comb_cache,
+        )
+    else:
+        raise EvidenceVerificationError(
+            f"unrecognized evidence type {type(ev).__name__}"
+        )
 
 
 def verify_duplicate_vote(ev: DuplicateVoteEvidence, chain_id: str, val_set) -> None:
@@ -151,3 +215,29 @@ def verify_light_client_attack(
         raise EvidenceVerificationError(
             "byzantine validator list does not match the evidence"
         )
+
+
+def _signed_header_at(block_store, height: int) -> SignedHeader:
+    meta = block_store.load_block_meta(height)
+    commit = block_store.load_block_commit(height)
+    if meta is None or commit is None:
+        raise EvidenceVerificationError(f"no header/commit at height {height}")
+    return SignedHeader(Header.from_proto(meta.header), commit)
+
+
+def _signed_header_at_or_latest(block_store, height: int, ev) -> SignedHeader:
+    try:
+        return _signed_header_at(block_store, height)
+    except EvidenceVerificationError:
+        # forward lunatic attack: fall back to our latest header — for the
+        # attack to be provable, monotonic time must be violated, i.e. our
+        # newest block must NOT be older than the conflicting one
+        # (verify.go:70-84)
+        latest = block_store.height
+        sh = _signed_header_at(block_store, latest)
+        if sh.header.time.unix_ns() < ev.conflicting_block.time.unix_ns():
+            raise EvidenceVerificationError(
+                f"latest block time {sh.header.time} is before conflicting "
+                f"block time {ev.conflicting_block.time}"
+            )
+        return sh

@@ -2,11 +2,11 @@
 cometbft_tpu/light/provider.py).
 
 A provider serves LightBlocks for a chain and accepts evidence reports.
-BlockStoreProvider serves them from a node's block and state stores,
-duck-typed (``height``, ``load_block_meta``, ``load_block_commit``;
-``load_validators``, ``load_consensus_params``): the port's own block
-and state stores come later, and an RPC-backed provider slots in behind
-the same three methods.
+BlockStoreProvider serves them from a node's block and state stores
+(store/block_store.py, state/store.py; duck-typed: ``height``,
+``load_block_meta``, ``load_block_commit``; ``load_validators``,
+``load_consensus_params``); light/rpc.HTTPProvider serves them from a
+full node's JSON-RPC behind the same three methods.
 """
 
 from __future__ import annotations

@@ -1,12 +1,13 @@
-"""BlockID, PartSetHeader, CommitSig, Commit and Header (reference:
-types/block.go): the part of cometbft_tpu/types/block.py that commit and
-light-client verification read, with the header and commit hashes and
-the proto round trip (to_proto / from_proto) of each.
+"""Block, Data, Header, Commit, ExtendedCommit, BlockID (reference:
+types/block.go; a copy of cometbft_tpu/types/block.py), with the hashes
+and the proto round trip (to_proto / from_proto) of each.
 
 Hashing rules follow the reference: Header.Hash is the Merkle root over
 the 14 proto-encoded fields, primitives wrapped in gogoproto wrappers
 (block.go:446, types/encoding_helper.go:11); Commit.Hash the root over
-the proto-encoded CommitSigs (block.go:988).  Both are host hashes.
+the proto-encoded CommitSigs (block.go:988); both on the host.
+Data.Hash is the root over the per-tx SHA-256 hashes (tx.go:51): K7 + K8
+on ``device`` for 512 txs or more, as ValidatorSet.hash routes a set.
 """
 
 from __future__ import annotations
@@ -149,6 +150,12 @@ class CommitSig:
     def absent_flag(self) -> bool:
         return self.block_id_flag == BLOCK_ID_FLAG_ABSENT
 
+    def block_id(self, commit_block_id: BlockID) -> BlockID:
+        """The BlockID this sig voted for (block.go CommitSig.BlockID)."""
+        if self.block_id_flag == BLOCK_ID_FLAG_COMMIT:
+            return commit_block_id
+        return BlockID()
+
     def validate_basic(self) -> None:
         if self.block_id_flag not in (
             BLOCK_ID_FLAG_ABSENT,
@@ -214,6 +221,42 @@ class Commit:
 
     def size(self) -> int:
         return len(self.signatures)
+
+    def get_vote(self, val_idx: int):
+        """The precommit Vote of a commit sig (block.go:898)."""
+        from .vote import Vote
+
+        cs = self.signatures[val_idx]
+        return Vote(
+            type=PRECOMMIT_TYPE,
+            height=self.height,
+            round=self.round,
+            block_id=cs.block_id(self.block_id),
+            timestamp=cs.timestamp,
+            validator_address=cs.validator_address,
+            validator_index=val_idx,
+            signature=cs.signature,
+        )
+
+    def median_time(self, validators) -> Timestamp:
+        """Voting-power-weighted median of the commit timestamps — BFT time
+        (block.go:968 MedianTime, types/time/time.go:57 WeightedMedian)."""
+        weighted = []
+        total = 0
+        for cs in self.signatures:
+            if cs.absent_flag():
+                continue
+            _, val = validators.get_by_address(cs.validator_address)
+            if val is not None:
+                total += val.voting_power
+                weighted.append((cs.timestamp.unix_ns(), val.voting_power))
+        weighted.sort()
+        median = total // 2
+        for ns, power in weighted:
+            if median <= power:
+                return Timestamp.from_unix_ns(ns)
+            median -= power
+        return ZERO_TIME
 
     def hash(self) -> bytes:
         """Merkle root over the proto-encoded CommitSigs (block.go:988),
@@ -424,3 +467,221 @@ class Header:
         return isinstance(other, Header) and all(
             getattr(self, f) == getattr(other, f) for f in self.FIELDS
         )
+
+
+class ExtendedCommitSig:
+    __slots__ = ("commit_sig", "extension", "extension_signature")
+
+    def __init__(
+        self,
+        commit_sig: CommitSig | None = None,
+        extension: bytes = b"",
+        extension_signature: bytes = b"",
+    ):
+        self.commit_sig = commit_sig or CommitSig.absent()
+        self.extension = extension
+        self.extension_signature = extension_signature
+
+    def to_proto(self) -> pb.ExtendedCommitSig:
+        cs = self.commit_sig
+        return pb.ExtendedCommitSig(
+            block_id_flag=cs.block_id_flag,
+            validator_address=cs.validator_address,
+            timestamp=cs.timestamp,
+            signature=cs.signature,
+            extension=self.extension,
+            extension_signature=self.extension_signature,
+        )
+
+    @classmethod
+    def from_proto(cls, m: pb.ExtendedCommitSig) -> "ExtendedCommitSig":
+        return cls(
+            commit_sig=CommitSig(
+                block_id_flag=m.block_id_flag,
+                validator_address=m.validator_address,
+                timestamp=m.timestamp or ZERO_TIME,
+                signature=m.signature,
+            ),
+            extension=m.extension,
+            extension_signature=m.extension_signature,
+        )
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, ExtendedCommitSig)
+            and self.commit_sig == other.commit_sig
+            and self.extension == other.extension
+            and self.extension_signature == other.extension_signature
+        )
+
+
+class ExtendedCommit:
+    __slots__ = ("height", "round", "block_id", "extended_signatures")
+
+    def __init__(
+        self,
+        height: int = 0,
+        round: int = 0,
+        block_id: BlockID | None = None,
+        extended_signatures: list[ExtendedCommitSig] | None = None,
+    ):
+        self.height = height
+        self.round = round
+        self.block_id = block_id or BlockID()
+        self.extended_signatures = extended_signatures or []
+
+    def to_commit(self) -> Commit:
+        return Commit(
+            height=self.height,
+            round=self.round,
+            block_id=self.block_id,
+            signatures=[ecs.commit_sig for ecs in self.extended_signatures],
+        )
+
+    def ensure_extensions(self, ext_enabled: bool) -> None:
+        """Check extension-signature presence is consistent with the flag
+        (block.go:1173 EnsureExtensions / :791 EnsureExtension)."""
+        for ecs in self.extended_signatures:
+            flag = ecs.commit_sig.block_id_flag
+            if ext_enabled:
+                if flag == BLOCK_ID_FLAG_COMMIT and not ecs.extension_signature:
+                    raise ValueError(
+                        "vote extension signature missing for validator "
+                        + ecs.commit_sig.validator_address.hex()
+                    )
+                if flag != BLOCK_ID_FLAG_COMMIT and (
+                    ecs.extension or ecs.extension_signature
+                ):
+                    raise ValueError("non-commit vote has extension data")
+            elif ecs.extension or ecs.extension_signature:
+                raise ValueError(
+                    "vote extension present but extensions are disabled"
+                )
+
+    def to_proto(self) -> pb.ExtendedCommit:
+        return pb.ExtendedCommit(
+            height=self.height,
+            round=self.round,
+            block_id=self.block_id.to_proto(),
+            extended_signatures=[s.to_proto() for s in self.extended_signatures],
+        )
+
+    @classmethod
+    def from_proto(cls, m: pb.ExtendedCommit) -> "ExtendedCommit":
+        return cls(
+            height=m.height,
+            round=m.round,
+            block_id=BlockID.from_proto(m.block_id or pb.BlockID()),
+            extended_signatures=[
+                ExtendedCommitSig.from_proto(s) for s in m.extended_signatures
+            ],
+        )
+
+
+class Data:
+    __slots__ = ("txs", "_hash")
+
+    def __init__(self, txs: list[bytes] | None = None):
+        self.txs = txs or []
+        self._hash: bytes | None = None
+
+    def hash(self, device="cuda") -> bytes:
+        """Root over the per-tx hashes, memoised: K7 + K8 on ``device`` for
+        crypto/merkle.DEVICE_THRESHOLD txs or more, hashlib below."""
+        from .tx import txs_hash
+
+        if self._hash is None:
+            route = device if len(self.txs) >= merkle.DEVICE_THRESHOLD else False
+            self._hash = txs_hash(self.txs, device=route)
+        return self._hash
+
+    def to_proto(self) -> pb.Data:
+        return pb.Data(txs=list(self.txs))
+
+    @classmethod
+    def from_proto(cls, m: pb.Data) -> "Data":
+        return cls(txs=list(m.txs))
+
+
+class Block:
+    __slots__ = ("header", "data", "evidence", "last_commit")
+
+    def __init__(
+        self,
+        header: Header | None = None,
+        data: Data | None = None,
+        evidence: list | None = None,
+        last_commit: Commit | None = None,
+    ):
+        self.header = header or Header()
+        self.data = data or Data()
+        self.evidence = evidence or []
+        self.last_commit = last_commit
+
+    def hash(self) -> bytes | None:
+        return self.header.hash()
+
+    def fill_header(self, device="cuda") -> None:
+        """Populate derived header hashes (block.go fillHeader)."""
+        if not self.header.last_commit_hash and self.last_commit is not None:
+            self.header.last_commit_hash = self.last_commit.hash()
+        if not self.header.data_hash:
+            self.header.data_hash = self.data.hash(device)
+        if not self.header.evidence_hash:
+            self.header.evidence_hash = self.evidence_hash()
+
+    def evidence_hash(self) -> bytes:
+        from .evidence import evidence_list_hash
+
+        return evidence_list_hash(self.evidence)
+
+    def validate_basic(self, device="cuda") -> None:
+        self.header.validate_basic()
+        if self.last_commit is not None:
+            self.last_commit.validate_basic()
+            if self.header.last_commit_hash != self.last_commit.hash():
+                raise ValueError("wrong LastCommitHash")
+        elif self.header.height > 1:
+            raise ValueError("nil LastCommit at height > 1")
+        if self.header.data_hash != self.data.hash(device):
+            raise ValueError("wrong DataHash")
+        if self.header.evidence_hash != self.evidence_hash():
+            raise ValueError("wrong EvidenceHash")
+
+    def to_proto(self) -> pb.BlockProto:
+        from .evidence import evidence_to_proto
+
+        return pb.BlockProto(
+            header=self.header.to_proto(),
+            data=self.data.to_proto(),
+            evidence=pb.EvidenceListProto(
+                evidence=[evidence_to_proto(e) for e in self.evidence]
+            ),
+            last_commit=self.last_commit.to_proto() if self.last_commit else None,
+        )
+
+    @classmethod
+    def from_proto(cls, m: pb.BlockProto) -> "Block":
+        from .evidence import evidence_from_proto
+
+        ev = []
+        if m.evidence is not None:
+            ev = [evidence_from_proto(e) for e in m.evidence.evidence]
+        return cls(
+            header=Header.from_proto(m.header or pb.Header()),
+            data=Data.from_proto(m.data or pb.Data()),
+            evidence=ev,
+            last_commit=Commit.from_proto(m.last_commit) if m.last_commit else None,
+        )
+
+    def encode(self) -> bytes:
+        return self.to_proto().encode()
+
+    @classmethod
+    def decode(cls, buf: bytes) -> "Block":
+        return cls.from_proto(pb.BlockProto.decode(buf))
+
+    def make_part_set(self, part_size: int = 65536):
+        from .part_set import PartSet
+
+        return PartSet.from_data(self.encode(), part_size)

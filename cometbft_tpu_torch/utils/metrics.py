@@ -7,9 +7,9 @@ whose observers the port has, under the JAX names, HELP texts, label
 sets and bucket bounds: the verify plane (comb staging, slab pool,
 batch width, table and pubkey caches, phase latencies), the verify
 service's scheduler, tenancy, collect timeouts and failover, proof
-serving and the health sentinel.  Left out until their modules are
-ported: the consensus, mempool, p2p, store and remote-plane series and
-``NodeMetrics``.  The hub is plain Python: it imports neither torch nor
+serving, the health sentinel and the block and state stores' access
+latency.  Left out until their modules are ported: the consensus,
+mempool, p2p and remote-plane series and ``NodeMetrics``.  The hub is plain Python: it imports neither torch nor
 anything of the JAX package.
 """
 
@@ -285,6 +285,12 @@ class Hub:
     def __init__(self, registry: Registry | None = None):
         self.registry = registry if registry is not None else Registry()
         r = self.registry
+        # ---- stores (store/metrics.go BlockStore access durations)
+        self.store_access_seconds = r.histogram(
+            "store_block_store_access_duration_seconds",
+            "Block/state store op latency (label method)",
+            buckets=(0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0),
+        )
         self.verify_submit_queue_depth = r.gauge(
             "verify_submit_queue_depth",
             "VerifyCommit submissions queued or staging on the comb "

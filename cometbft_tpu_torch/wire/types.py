@@ -1,9 +1,10 @@
-"""Proto messages of the header and validator-set hashes, the light
-block and the evidence the light client reports (a copy of
-cometbft_tpu/wire/types_pb.py for these messages; reference:
-proto/cometbft/{types,crypto,version,evidence}/v1, gogoproto wrappers).
-Encoding and decoding rules are those of wire/proto.py; emit_default
-marks gogoproto.nullable=false embedded messages (always written)."""
+"""Domain proto messages: headers, commits, validator sets, light
+blocks, evidence, blocks and their parts, the stores' block metas and
+the consensus params (a copy of cometbft_tpu/wire/types_pb.py; reference:
+proto/cometbft/{types,crypto,version,evidence,params}/v1, gogoproto
+wrappers).  Encoding and decoding rules are those of wire/proto.py;
+emit_default marks gogoproto.nullable=false embedded messages (always
+written)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,22 @@ from .canonical import Timestamp
 from .proto import Field, Message
 
 # ------------------------------------------------ gogoproto wrappers
+
+
+class Duration(Message):
+    """google.protobuf.Duration."""
+
+    FIELDS = [
+        Field(1, "seconds", "varint"),
+        Field(2, "nanos", "varint"),
+    ]
+
+    @classmethod
+    def from_ns(cls, ns: int) -> "Duration":
+        return cls(seconds=ns // 1_000_000_000, nanos=ns % 1_000_000_000)
+
+    def ns(self) -> int:
+        return self.seconds * 1_000_000_000 + self.nanos
 
 
 class Int64Value(Message):
@@ -54,6 +71,34 @@ class PublicKey(Message):
     ]
 
 
+class Proof(Message):
+    FIELDS = [
+        Field(1, "total", "varint"),
+        Field(2, "index", "varint"),
+        Field(3, "leaf_hash", "bytes"),
+        Field(4, "aunts", "bytes", repeated=True),
+    ]
+
+
+class ValueOpProto(Message):
+    FIELDS = [
+        Field(1, "key", "bytes"),
+        Field(2, "proof", "message", Proof),
+    ]
+
+
+class ProofOpProto(Message):
+    FIELDS = [
+        Field(1, "type", "string"),
+        Field(2, "key", "bytes"),
+        Field(3, "data", "bytes"),
+    ]
+
+
+class ProofOps(Message):
+    FIELDS = [Field(1, "ops", "message", ProofOpProto, repeated=True)]
+
+
 # -------------------------------------------------------- types/v1
 
 
@@ -61,6 +106,14 @@ class PartSetHeader(Message):
     FIELDS = [
         Field(1, "total", "varint"),
         Field(2, "hash", "bytes"),
+    ]
+
+
+class Part(Message):
+    FIELDS = [
+        Field(1, "index", "varint"),
+        Field(2, "bytes", "bytes"),
+        Field(3, "proof", "message", Proof, emit_default=True),
     ]
 
 
@@ -109,6 +162,10 @@ class Header(Message):
     ]
 
 
+class Data(Message):
+    FIELDS = [Field(1, "txs", "bytes", repeated=True)]
+
+
 class Vote(Message):
     FIELDS = [
         Field(1, "type", "varint"),
@@ -130,6 +187,26 @@ class Commit(Message):
         Field(2, "round", "varint"),
         Field(3, "block_id", "message", BlockID, emit_default=True),
         Field(4, "signatures", "message", CommitSig, repeated=True),
+    ]
+
+
+class ExtendedCommitSig(Message):
+    FIELDS = [
+        Field(1, "block_id_flag", "varint"),
+        Field(2, "validator_address", "bytes"),
+        Field(3, "timestamp", "message", Timestamp, emit_default=True),
+        Field(4, "signature", "bytes"),
+        Field(5, "extension", "bytes"),
+        Field(6, "extension_signature", "bytes"),
+    ]
+
+
+class ExtendedCommit(Message):
+    FIELDS = [
+        Field(1, "height", "varint"),
+        Field(2, "round", "varint"),
+        Field(3, "block_id", "message", BlockID, emit_default=True),
+        Field(4, "extended_signatures", "message", ExtendedCommitSig, repeated=True),
     ]
 
 
@@ -172,6 +249,23 @@ class LightBlockProto(Message):
     ]
 
 
+class BlockMeta(Message):
+    FIELDS = [
+        Field(1, "block_id", "message", BlockID, emit_default=True),
+        Field(2, "block_size", "varint"),
+        Field(3, "header", "message", Header, emit_default=True),
+        Field(4, "num_txs", "varint"),
+    ]
+
+
+class TxProof(Message):
+    FIELDS = [
+        Field(1, "root_hash", "bytes"),
+        Field(2, "data", "bytes"),
+        Field(3, "proof", "message", Proof),
+    ]
+
+
 # ------------------------------------------------------- evidence/v1
 
 
@@ -206,3 +300,77 @@ class EvidenceProto(Message):
 
 class EvidenceListProto(Message):
     FIELDS = [Field(1, "evidence", "message", EvidenceProto, repeated=True)]
+
+
+class BlockProto(Message):
+    FIELDS = [
+        Field(1, "header", "message", Header, emit_default=True),
+        Field(2, "data", "message", Data, emit_default=True),
+        Field(3, "evidence", "message", EvidenceListProto, emit_default=True),
+        Field(4, "last_commit", "message", Commit),
+    ]
+
+
+# ------------------------------------------------------- params/v1
+
+
+class BlockParams(Message):
+    FIELDS = [
+        Field(1, "max_bytes", "varint"),
+        Field(2, "max_gas", "varint"),
+    ]
+
+
+class EvidenceParams(Message):
+    FIELDS = [
+        Field(1, "max_age_num_blocks", "varint"),
+        Field(2, "max_age_duration", "message", Duration, emit_default=True),
+        Field(3, "max_bytes", "varint"),
+    ]
+
+
+class ValidatorParams(Message):
+    FIELDS = [Field(1, "pub_key_types", "string", repeated=True)]
+
+
+class VersionParams(Message):
+    FIELDS = [Field(1, "app", "varint")]
+
+
+class ABCIParams(Message):
+    FIELDS = [Field(1, "vote_extensions_enable_height", "varint")]
+
+
+class SynchronyParams(Message):
+    FIELDS = [
+        Field(1, "precision", "message", Duration),
+        Field(2, "message_delay", "message", Duration),
+    ]
+
+
+class FeatureParams(Message):
+    FIELDS = [
+        Field(1, "vote_extensions_enable_height", "message", Int64Value),
+        Field(2, "pbts_enable_height", "message", Int64Value),
+    ]
+
+
+class ConsensusParamsProto(Message):
+    FIELDS = [
+        Field(1, "block", "message", BlockParams),
+        Field(2, "evidence", "message", EvidenceParams),
+        Field(3, "validator", "message", ValidatorParams),
+        Field(4, "version", "message", VersionParams),
+        Field(5, "abci", "message", ABCIParams),
+        Field(6, "synchrony", "message", SynchronyParams),
+        Field(7, "feature", "message", FeatureParams),
+    ]
+
+
+class HashedParams(Message):
+    """Subset hashed into Header.consensus_hash (params.proto HashedParams)."""
+
+    FIELDS = [
+        Field(1, "block_max_bytes", "varint"),
+        Field(2, "block_max_gas", "varint"),
+    ]

@@ -1662,3 +1662,61 @@ def test_light_client_sync_on_the_card_matches_cpu(dev, svc_stop, monkeypatch, r
         else:
             assert launches["verify_batch"] > 0 and launches["verify_cached"] == 0, launches
         assert launches["sha512_blocks"] > 0
+
+
+def test_http_sync_and_verified_reads_on_the_card_match_cpu(dev, svc_stop, monkeypatch):
+    """A node of 600 validators (tests/torch_rpc_node.py) served over
+    loopback JSON-RPC: a SKIPPING sync through HTTPProvider on the card
+    and with device="cpu" reads the same light blocks and stores the same
+    bytes; the card's run hashed each served set on K7 + K8 and checked
+    the commits on K2; a verified data proof through merkle_proof on the
+    card (K7 -> K8 -> K9; the PROOF class's device minimum at 1 for the
+    lone query) equals the CPU node's answer."""
+    import struct
+
+    import torch_rpc_node as RN
+
+    from cometbft_tpu_torch import light
+    from cometbft_tpu_torch import types as T
+    from cometbft_tpu_torch.light.rpc import HTTPProvider, VerifyingClient
+    from cometbft_tpu_torch.ops import merkle as Mk, sha2
+    from cometbft_tpu_torch.rpc import HTTPClient
+    from cometbft_tpu_torch.state import StateStore
+    from cometbft_tpu_torch.store import BlockStore, MemDB
+
+    monkeypatch.setenv("COMETBFT_TPU_PROOF_DEVICE_MIN", "1")
+    keys = RN.make_keys(600_600, 660)
+    chain = RN.NodeChain("cuda-rpc", keys, 600, BlockStore(MemDB()), StateStore(MemDB()), txs_per_block=520,
+                         tx_bytes=64, shift_after=2, shift=60, seed=600, device="cpu")
+    for _ in range(5):
+        chain.advance()
+    now = RN.GENESIS_NS + 3600 * RN.NS
+    out = {}
+    for device in ("cuda", "cpu"):
+        node = RN.RPCNode(chain.block_store, chain.state_store, device=device)
+        node.start()
+        try:
+            for d in (sha2.LAUNCHES, Mk.LAUNCHES):
+                for k in d:
+                    d[k] = 0
+            prov = HTTPProvider("cuda-rpc", HTTPClient(node.addr, timeout=30), device=device)
+            wit = HTTPProvider("cuda-rpc", HTTPClient(node.addr, timeout=30), device=device)
+            store = light.LightStore(MemDB())
+            c = light.Client("cuda-rpc", light.TrustOptions(10**18, 1, chain.blocks[1].hash()), prov, [wit], store,
+                             now_fn=lambda: now, device=device)
+            lb = c.verify_light_block_at_height(5)
+            vc = VerifyingClient(HTTPClient(node.addr, timeout=30), c)
+            proof = vc.data_proof(3, 517)
+            stored = [(struct.unpack(">q", k[3:])[0], v) for k, v in store.db.iterator(b"lb:", b"lb:\xff")]
+            out[device] = (lb.hash, stored, proof, dict(node.calls))
+            launches = {**sha2.LAUNCHES, **Mk.LAUNCHES}
+        finally:
+            node.stop()
+        if device == "cuda":
+            assert launches["sha256_blocks"] >= 2 and launches["merkle_tree"] >= 2, launches
+            assert launches["sha512_blocks"] > 0 and launches["merkle_gather"] >= 1, launches
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][0] == chain.blocks[5].hash()
+    assert [h for h, _ in out["cuda"][1]] == [1, 3, 5]  # the sync, then the proof's height
+    assert out["cuda"][2]["root_hash"] == chain.blocks[3].header.data_hash.hex().upper()
+    assert T.txs_hash(chain.blocks[3].data.txs, device=dev) == chain.blocks[3].header.data_hash

@@ -1,5 +1,6 @@
-"""The port stands alone: no file of cometbft_tpu_torch/, and not
-chip_smoke.py, imports jax or the JAX package; and its entry points run
+"""The port stands alone: no file of cometbft_tpu_torch/, and neither
+chip_smoke.py nor the node helper it serves from (tests/torch_rpc_node.py),
+imports jax or the JAX package; and its entry points run
 on the card by default — without one they raise rather than drop to the
 CPU (checked where no CUDA device is present)."""
 
@@ -16,7 +17,8 @@ import torch
 torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "cometbft_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "cometbft_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                   ROOT / "tests" / "torch_rpc_node.py"]
 FORBIDDEN = ("jax", "jaxlib", "cometbft_tpu")
 
 
@@ -45,6 +47,14 @@ def test_port_files_exist():
             "cometbft_tpu_torch/light/provider.py", "cometbft_tpu_torch/light/store.py",
             "cometbft_tpu_torch/evidence/verify.py", "cometbft_tpu_torch/store/db.py",
             "cometbft_tpu_torch/crypto/encoding.py", "cometbft_tpu_torch/types/evidence.py"} <= names
+    # the node's stores, the evidence pool and the light client's RPC front
+    assert {"cometbft_tpu_torch/store/block_store.py", "cometbft_tpu_torch/state/state.py",
+            "cometbft_tpu_torch/state/store.py", "cometbft_tpu_torch/evidence/pool.py",
+            "cometbft_tpu_torch/light/rpc.py", "cometbft_tpu_torch/rpc/client.py",
+            "cometbft_tpu_torch/rpc/serializers.py", "cometbft_tpu_torch/types/params.py",
+            "cometbft_tpu_torch/types/part_set.py", "cometbft_tpu_torch/types/genesis.py",
+            "cometbft_tpu_torch/types/tx.py", "cometbft_tpu_torch/wire/state.py",
+            "cometbft_tpu_torch/wire/abci.py", "tests/torch_rpc_node.py"} <= names
     assert len(names) >= 20
 
 
@@ -112,6 +122,43 @@ def test_light_client_and_evidence_default_device_raise_without_card(no_card):
     ev = LightClientAttackEvidence(lb, 1, total_voting_power=40)
     with pytest.raises(NoCudaDevice):
         verify_light_client_attack(ev, lb.signed_header, lb.signed_header, vals, "c")
+
+
+def test_node_stores_pool_and_rpc_front_default_device_raise_without_card(no_card):
+    """The HTTP provider and the evidence pool resolve their device when
+    they are made; a block's data hash and its make_block's set hashes run
+    K7 + K8 on the card at 512 txs or validators and more."""
+    from cometbft_tpu_torch import types as T
+    from cometbft_tpu_torch._device import NoCudaDevice
+    from cometbft_tpu_torch.crypto import merkle as cm
+    from cometbft_tpu_torch.evidence import EvidencePool
+    from cometbft_tpu_torch.light.rpc import HTTPProvider
+    from cometbft_tpu_torch.rpc import HTTPClient
+    from cometbft_tpu_torch.state import StateStore, make_genesis_state
+    from cometbft_tpu_torch.store import BlockStore, MemDB
+
+    with pytest.raises(NoCudaDevice):
+        HTTPProvider("c", HTTPClient("127.0.0.1:1"))
+    HTTPProvider("c", HTTPClient("127.0.0.1:1"), device="cpu")
+    keys = _small_set()
+    doc = T.GenesisDoc(chain_id="c", validators=[T.GenesisValidator("ed25519", k.pub_key().bytes(), 10)
+                                                 for k in keys])
+    state = make_genesis_state(doc)
+    ss = StateStore(MemDB())
+    ss.save(state)
+    with pytest.raises(NoCudaDevice):
+        EvidencePool(MemDB(), ss, BlockStore(MemDB()))
+    EvidencePool(MemDB(), ss, BlockStore(MemDB()), device="cpu")
+    txs = [b"tx-%d" % i for i in range(cm.DEVICE_THRESHOLD)]
+    with pytest.raises(NoCudaDevice):
+        T.Data(txs).hash()
+    with pytest.raises(NoCudaDevice):
+        T.txs_hash(txs)
+    with pytest.raises(NoCudaDevice):
+        state.make_block(1, txs, None, [], keys[0].pub_key().address())
+    assert T.Data(txs[:3]).hash() == T.txs_hash(txs[:3], device=False)
+    assert state.make_block(1, txs[:3], None, [], keys[0].pub_key().address()).header.data_hash == \
+        T.txs_hash(txs[:3], device=False)
 
 
 def test_factory_cache_and_convert_default_device_raise_without_card(no_card):

@@ -21,7 +21,7 @@ LEFT_OUT = {
     "consensus_duplicate_block_part", "mempool_tx_size_bytes", "mempool_failed_txs", "mempool_evicted_txs",
     "mempool_recheck_times", "mempool_already_received_txs", "p2p_message_send_bytes_total",
     "p2p_message_receive_bytes_total", "p2p_message_send_count", "p2p_message_receive_count", "p2p_errors_total",
-    "consensus_timeout_fired_total", "consensus_height_phase_seconds", "store_block_store_access_duration_seconds",
+    "consensus_timeout_fired_total", "consensus_height_phase_seconds",
     "verify_rpc_requests_total", "verify_rpc_resends_total", "verify_rpc_reconnects_total",
     "verify_rpc_breaker_state", "verify_rpc_breaker_transitions_total",
 }
